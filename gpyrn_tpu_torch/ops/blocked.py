@@ -1,0 +1,129 @@
+"""Blocked Cholesky and triangular-inverse diagonal of the sweep.
+
+Port of :mod:`gpyrn_tpu.ops.blocked`.  The coordinate-ascent sweep needs,
+per GP, ``diag(A⁻¹)`` for A = K + D⁻¹ (chol L): through
+
+    diag Σ      = d − d² · diag(A⁻¹)          (Σ = K − K A⁻¹ K, d = D⁻¹ diag)
+    tr(A⁻¹ D⁻¹) = Σⱼ dⱼ (A⁻¹)ⱼⱼ
+
+every Σ diagnostic of the ELBO reduces to diag(A⁻¹), the column norms² of
+L⁻¹.  The factorization is left-looking and blocked; the O(N³) panel
+updates and the strip-by-strip inversion of L are batched matrix
+products, and only the T×T diagonal blocks go to ``cholesky_ex`` /
+``solve_triangular``.  The JAX package leaves these to XLA; here they are
+torch.linalg / matmul calls on the blocks.  Buffers are updated in place
+(this path is forward-only).
+
+A failed factorization gives NaN, as ``jnp.linalg.cholesky`` does: the
+diagonal blocks are factored with ``cholesky_ex`` and the batch entries
+whose ``info`` is positive are overwritten with NaN on the device, with
+no host synchronisation.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["blocked_cholesky", "diag_Ainv", "blocked_chol_diag_ainv",
+           "cholesky_nan", "DEFAULT_BLOCK"]
+
+DEFAULT_BLOCK = 512
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _block_size(N: int, block: int) -> int:
+    # at most ~16 strips
+    T = min(block, _round_up(N, 128))
+    while N > 16 * T:
+        T *= 2
+    return T
+
+
+def cholesky_nan(A):
+    """Lower Cholesky factor of a batch; where the factorization fails,
+    a lower triangle of NaN (``jnp.linalg.cholesky`` semantics).  Never
+    raises, never synchronises with the host."""
+    L, info = torch.linalg.cholesky_ex(A)
+    bad = (info > 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")).tril(), L)
+
+
+def _tri_inv(L):
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+
+def blocked_cholesky(A, block: int = DEFAULT_BLOCK):
+    """Left-looking blocked Cholesky of an SPD batch (B, N, N) →
+    ``(L, Linv_d)``: the (identity-padded) lower factor and the
+    (B, nb, T, T) inverses of its diagonal blocks."""
+    B, N, _ = A.shape
+    T = _block_size(N, block)
+    Npad = _round_up(N, T)
+    nb = Npad // T
+    if Npad != N:
+        A = torch.nn.functional.pad(A, (0, Npad - N, 0, Npad - N))
+        idx = torch.arange(N, Npad, device=A.device)
+        A[:, idx, idx] = 1.0
+
+    L = torch.zeros_like(A)
+    linvs = []
+    for i in range(nb):
+        a = i * T
+        if i:
+            top = L[:, a:a + T, :a]                       # (B, T, a)
+            Aii = A[:, a:a + T, a:a + T] - top @ top.transpose(1, 2)
+            Ari = A[:, a + T:, a:a + T] - \
+                L[:, a + T:, :a] @ top.transpose(1, 2)
+        else:
+            Aii = A[:, :T, :T]
+            Ari = A[:, T:, :T]
+        Lii = cholesky_nan(Aii)
+        Linv = _tri_inv(Lii)
+        linvs.append(Linv)
+        L[:, a:a + T, a:a + T] = Lii
+        if i + 1 < nb:
+            L[:, a + T:, a:a + T] = Ari @ Linv.transpose(1, 2)   # Ari Lii⁻ᵀ
+    return L, torch.stack(linvs, dim=1)
+
+
+def diag_Ainv(L, Linv_d=None, block: int = DEFAULT_BLOCK,
+              n_valid: int | None = None):
+    """``diag(A⁻¹)`` for ``A = L Lᵀ``: column norms² of ``L⁻¹``.
+
+    Row strip i of X = L⁻¹ is ``X_i = Linv_ii @ [−L_i,:a @ X_:a,:a │ I]``,
+    one matrix product per strip.  ``L`` must be padded to a block
+    multiple (identity tail, see :func:`blocked_cholesky`); ``n_valid``
+    slices the logical N back out."""
+    B, Npad, _ = L.shape
+    T = _block_size(Npad, block)
+    if Npad % T:
+        raise ValueError(f"padded N {Npad} not a multiple of block {T}")
+    nb = Npad // T
+    if Linv_d is None:
+        Ld = torch.stack([L[:, i * T:(i + 1) * T, i * T:(i + 1) * T]
+                          for i in range(nb)], dim=1)
+        Linv_d = _tri_inv(Ld)
+
+    X = torch.zeros((B, Npad, Npad), dtype=L.dtype, device=L.device)
+    for i in range(nb):
+        a = i * T
+        Linv = Linv_d[:, i]
+        if i:
+            S = L[:, a:a + T, :a] @ X[:, :a, :a]
+            X[:, a:a + T, :a] = -(Linv @ S)
+        X[:, a:a + T, a:a + T] = Linv
+    acc = torch.sum(X * X, dim=1)
+    n = Npad if n_valid is None else n_valid
+    return acc[:, :n]
+
+
+def blocked_chol_diag_ainv(A, block: int = DEFAULT_BLOCK):
+    """``(L, diag(A⁻¹))`` of an SPD batch (B, N, N); L is (B, N, N), the
+    padding sliced off."""
+    N = A.shape[-1]
+    Lp, Linv_d = blocked_cholesky(A, block=block)
+    d = diag_Ainv(Lp, Linv_d=Linv_d, block=block, n_valid=N)
+    return Lp[:, :N, :N], d
