@@ -46,7 +46,8 @@ def components_from_jax(nodes, weights, means, jitters):
 
 def inference_from_jax(g, device) -> inference:
     """A port :class:`inference` on ``device`` holding the same data,
-    components and cached variational state as the JAX inference ``g``."""
+    components, frozen mask and cached variational state as the JAX
+    inference ``g``."""
     data = []
     for y, yerr in zip(np.asarray(g.y), np.asarray(g.yerr)):
         data += [y, yerr]
@@ -54,6 +55,7 @@ def inference_from_jax(g, device) -> inference:
                     device=device)
     out.set_components(*components_from_jax(g.nodes, g.weights, g.means,
                                             g.jitters))
+    out._frozen_mask = np.array(g._frozen_mask, dtype=bool)
     if g._mu is not None:
         out._mu = torch.tensor(np.array(g._mu, dtype=float),
                                device=out.device)

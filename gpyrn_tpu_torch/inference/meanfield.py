@@ -1,16 +1,21 @@
 """Mean-field variational inference for GPRNs — user-facing API.
 
-Port of the fit-and-predict subset of :mod:`gpyrn_tpu.inference.meanfield`:
+Port of a subset of :mod:`gpyrn_tpu.inference.meanfield`:
 ``inference(q, time, y1, y1err, ..., device=...)``, ``set_components``,
-``get_parameters`` / ``set_parameters``, ``ELBO`` / ``ELBOcalc`` and
+``get_parameters`` / ``set_parameters`` / ``parameters_dict``, freeze and
+thaw, ``ELBO`` / ``ELBOcalc`` / ``nELBO``, ``elbo_grad`` (unrolled),
+``optimize`` (scipy) and ``optimize_adam`` (unrolled gradient), and
 ``predict`` / ``_Prediction``, over the engine of
 :mod:`gpyrn_tpu_torch.models.gprn`.
 
-The device is chosen by the caller (``device="cpu"`` by default, never
-detected); the data and every result live there as float64 tensors.
+The device is the card (``device="cuda"``) unless the caller asks for
+another (``device="cpu"``); it is never detected, and nothing touches
+CUDA before the first tensor is made.  The data and every result live
+there as float64 tensors.
 """
 from __future__ import annotations
 
+import time as time_module
 from itertools import chain
 
 import numpy as np
@@ -32,13 +37,14 @@ class inference:
         q: number of latent node functions f(x)
         time: time coordinates
         *args: observed data as y1, y1error, y2, y2error, ...
-        device: torch device the fit and prediction run on
+        device: torch device the fit, gradient and prediction run on
+            (the card by default)
 
     The ``'random'`` starting state draws from ``self.generator``, a CPU
     ``torch.Generator`` (seed it with ``self.generator.manual_seed``).
     """
 
-    def __init__(self, q: int, time, *args, device="cpu"):
+    def __init__(self, q: int, time, *args, device="cuda"):
         self.q = q
         self.time = np.asarray(time, dtype=float)
         self.N = self.time.size
@@ -62,8 +68,10 @@ class inference:
 
         self.generator = torch.Generator()
         self._components_set = False
+        self._frozen_mask = np.array([])
         self._mu, self._var = None, None
         self._engine = None
+        self.verbose = False
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, dtype=float), dtype=self.dtype,
@@ -126,21 +134,37 @@ class inference:
         return nodes, weights, means, jitters
 
     def get_parameters(self, nodes=None, weights=None, means=None,
-                       jitters=None):
-        """Values of all GPRN parameters as a flat vector, in the order
-        nodes → weights → means → jitters."""
+                       jitters=None, include_frozen=False):
+        """Values of the GPRN parameters as a flat vector, in the order
+        nodes → weights → means → jitters; the frozen ones are left out
+        unless ``include_frozen`` (or no components are set yet)."""
         nodes, weights, means, jitters = self._get_components(
             nodes, weights, means, jitters)
-        return _core.pack_parameters(nodes, weights, means, jitters)
+        out = _core.pack_parameters(nodes, weights, means, jitters)
+        if include_frozen or not self._components_set:
+            return out
+        return out[~self.frozen_mask]
 
     def set_parameters(self, parameters):
-        """Set values for all GPRN parameters (the full vector)."""
+        """Set values for the GPRN parameters: the full vector (frozen
+        entries keep their values) or only the non-frozen subset."""
         self._require_components()
         parameters = np.atleast_1d(np.asarray(parameters, dtype=float))
-        if parameters.size != self.n_parameters:
+        all_parameters = self.get_parameters(include_frozen=True)
+        frozen = self.frozen_mask
+        n_free = self.n_parameters - int(frozen.sum())
+        if parameters.size == self.n_parameters:
+            parameters = np.where(frozen, all_parameters, parameters)
+        elif parameters.size == n_free:
+            full = all_parameters.copy()
+            full[~frozen] = parameters
+            parameters = full
+        else:
+            expected = f'{self.n_parameters}' if n_free == \
+                self.n_parameters else \
+                f'{self.n_parameters} (all) or {n_free} (not frozen)'
             raise ValueError(f'Wrong number of parameters provided: got '
-                             f'{parameters.size}, expected '
-                             f'{self.n_parameters}')
+                             f'{parameters.size}, expected {expected}')
         it = [self.nodes, self.weights,
               [m for m in self.means if m is not None]]
         for component in chain.from_iterable(it):
@@ -155,6 +179,104 @@ class inference:
               [m for m in self.means if m is not None]]
         return sum(c.pars.size for c in chain.from_iterable(it)) + \
             self.jitters.size
+
+    @property
+    def parameters_dict(self):
+        """Parameter names and values, keyed like 'node1.theta',
+        'weight2.ell', 'mean1.c', 'jitter1'."""
+        self._require_components()
+        p = {}
+        for i, node in enumerate(self.nodes, start=1):
+            for par, val in zip(node._param_names, node.pars):
+                p[f'node{i}.{par}'] = val
+        for i, weight in enumerate(self.weights, start=1):
+            for par, val in zip(weight._param_names, weight.pars):
+                p[f'weight{i}.{par}'] = val
+        for i, mean in enumerate(self.means, start=1):
+            if mean is None:
+                continue
+            for par, val in zip(mean._param_names, mean.pars):
+                p[f'mean{i}.{par}'] = val
+        for i, jit in enumerate(self.jitters, start=1):
+            p[f'jitter{i}'] = jit
+        return p
+
+    # ------------------------------------------------------------------
+    # freeze / thaw
+    # ------------------------------------------------------------------
+
+    def freeze_parameter(self, index=None, name=None):
+        """Freeze (do not fit) a parameter by index or name; a '*' in
+        ``name`` freezes every parameter whose name contains the rest."""
+        self._set_frozen(index, name, True)
+
+    def thaw_parameter(self, index=None, name=None):
+        """Thaw (free) a parameter by index or name ('*' globs)."""
+        self._set_frozen(index, name, False)
+
+    def _set_frozen(self, index, name, value):
+        mask = self.frozen_mask
+        if index is None and name is None:
+            raise ValueError('Provide either index or name')
+        if name is None:
+            mask[index] = value
+            return
+        names = list(self.parameters_dict)
+        if '*' in name:
+            frag = name.replace('*', '')
+            for i, known in enumerate(names):
+                if frag in known:
+                    mask[i] = value
+        elif name in names:
+            mask[names.index(name)] = value
+        else:
+            raise ValueError(f'Name "{name}" not found in parameters_dict')
+
+    def freeze_all_parameters(self):
+        """Freeze all parameters."""
+        self._frozen_mask = np.ones(self.frozen_mask.size, dtype=bool)
+
+    def thaw_all_parameters(self):
+        """Thaw all parameters."""
+        self._frozen_mask = np.zeros(self.frozen_mask.size, dtype=bool)
+
+    fix_parameter = freeze_parameter
+    fix_all_parameters = freeze_all_parameters
+    free_parameter = thaw_parameter
+    free_all_parameters = thaw_all_parameters
+
+    @property
+    def frozen_mask(self):
+        """Boolean mask of frozen parameters (over the full vector)."""
+        self._require_components()
+        if self._frozen_mask.size == 0:
+            self._frozen_mask = np.full(self.n_parameters, False, dtype=bool)
+        return self._frozen_mask
+
+    @frozen_mask.setter
+    def frozen_mask(self, mask):
+        raise NotImplementedError(
+            'Do not set frozen_mask, use thaw_parameter/freeze_parameter')
+
+    def _apply_vars_selection(self, vars):
+        """The ``vars=`` freeze/thaw shorthand of the optimizers: a name
+        (or '*' glob) to fit alone, '-name' to fit all but it, or a list
+        of names to fit."""
+        if vars is None:
+            return
+        if isinstance(vars, str):
+            if '-' in vars:
+                self.thaw_parameter(name='*')
+                self.freeze_parameter(name=vars.replace('-', ''))
+            else:
+                self.freeze_parameter(name='*')
+                self.thaw_parameter(name=vars)
+        elif isinstance(vars, list):
+            self.freeze_parameter(name='*')
+            for var in vars:
+                self.thaw_parameter(name=var)
+        else:
+            raise ValueError(f'`vars` should be str or list, got {type(vars)}')
 
     # ------------------------------------------------------------------
     # engine plumbing
@@ -179,8 +301,15 @@ class inference:
         return self._engine
 
     def _theta(self, nodes=None, weights=None, means=None, jitters=None):
-        return self._tensor(self.get_parameters(nodes, weights, means,
-                                                jitters))
+        """The full parameter vector (frozen entries included) as a
+        tensor on the device."""
+        return self._tensor(_core.pack_parameters(*self._get_components(
+            nodes, weights, means, jitters)))
+
+    def _data(self):
+        """``(t, y, yerr2)`` as tensors on the device."""
+        return (self._tensor(self.time), self._tensor(self.y),
+                self._tensor(self.yerr2))
 
     def _resolve_mu_var(self, mu, var, theta):
         """Starting state: arrays, or 'init' | 'random' | 'previous'."""
@@ -237,9 +366,7 @@ class inference:
         if max_iter is None:
             max_iter = 10000
         elbo, mu_out, var_out, n_iter, converged, trace = \
-            self.engine.elbo_fit(theta, self._tensor(self.time),
-                                 self._tensor(self.y),
-                                 self._tensor(self.yerr2), mu0, var0,
+            self.engine.elbo_fit(theta, *self._data(), mu0, var0,
                                  int(max_iter))
         # per-iteration ELBO trajectory (diagnostics)
         self.elbo_history = trace
@@ -251,6 +378,127 @@ class inference:
         else:
             print('\nMax iterations reached')
         return float(elbo), mu_out, var_out, int(n_iter)
+
+    def nELBO(self, parameters, max_iter=None):
+        """Negative ELBO at the given hyperparameters (warm-started from
+        the cached variational state)."""
+        self._require_components()
+        self.set_parameters(parameters)
+        start = time_module.time()
+        elbo, _, _, _ = self.ELBOcalc(max_iter=max_iter,
+                                      mu='previous', var='previous')
+        end = time_module.time()
+        if self.verbose:
+            spaces = 20 * ' '
+            print(f'ELBO={elbo:7.2f} (took {1e3 * (end - start):5.2f} ms)'
+                  f'{spaces}', end='\r', flush=True)
+        return -elbo
+
+    def elbo_grad(self, parameters=None, n_sweeps=30, mu=None, var=None,
+                  method='unroll'):
+        """ELBO and its gradient with respect to all hyperparameters
+        (frozen ones included), as ``(float, numpy array)``.
+
+        ``method='unroll'`` differentiates through ``n_sweeps``
+        coordinate-ascent sweeps from ``mu``/``var`` (default: the cached
+        state, else the heuristic start): the exact gradient of the
+        truncated objective, cost and memory linear in ``n_sweeps``."""
+        self._require_components()
+        if method == 'implicit':
+            raise NotImplementedError(
+                "method='implicit' (the converged-state gradient of "
+                "models/implicit.py) is not ported yet: ROADMAP A9")
+        if method != 'unroll':
+            raise ValueError("method must be 'unroll' or 'implicit', "
+                             f"got {method!r}")
+        if parameters is not None:
+            self.set_parameters(parameters)
+        theta = self._theta()
+        if mu is None:
+            mu, var = 'previous', 'previous'
+        mu0, var0 = self._resolve_mu_var(mu, var, theta)
+        value, grad = self.engine.elbo_value_and_grad(
+            theta, *self._data(), mu0, var0, n_sweeps)
+        return float(value), grad.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # optimization
+    # ------------------------------------------------------------------
+
+    def optimize(self, vars=None, **kwargs):
+        """Maximize the ELBO over the (non-frozen) hyperparameters with
+        scipy (default Nelder-Mead, as the reference does)."""
+        from scipy.optimize import minimize
+        self._apply_vars_selection(vars)
+        kwargs.setdefault('method', 'Nelder-Mead')
+        res = minimize(self.nELBO, self.get_parameters(), **kwargs)
+        self.set_parameters(res.x)
+        return res
+
+    def optimize_adam(self, vars=None, n_steps=200, learning_rate=5e-2,
+                      n_sweeps=30, transform='log', callback=None,
+                      grad='unroll'):
+        """Adam on the negative ELBO over the non-frozen hyperparameters.
+
+        ``grad='unroll'`` differentiates through ``n_sweeps``
+        coordinate-ascent sweeps from the state cached at entry: a fixed,
+        deterministic objective.  ``transform='log'`` optimizes
+        log-parameters (every GPRN amplitude, length scale and jitter is
+        positive).  Returns ``{'fun', 'x', 'elbo', 'n_steps'}``: the best
+        loss seen, the free parameters where it was recorded, and the
+        converged ELBO there (the variational cache is refreshed)."""
+        if grad == 'implicit':
+            raise NotImplementedError(
+                "grad='implicit' (the bilevel optimizer on the "
+                "converged-state gradient of models/implicit.py) is not "
+                "ported yet: ROADMAP A9")
+        if grad != 'unroll':
+            raise ValueError(f"grad must be 'unroll' or 'implicit', "
+                             f"got {grad!r}")
+        self._apply_vars_selection(vars)
+        free_np = ~self.frozen_mask
+        eng = self.engine
+        t, y, yerr2 = self._data()
+        base = self._theta()
+        mu0, var0 = self._resolve_mu_var('previous', 'previous', base)
+        free = torch.as_tensor(free_np, device=self.device)
+        use_log = transform == 'log'
+
+        def from_opt(z):
+            return torch.exp(z) if use_log else z
+
+        z0 = torch.where(free, base, torch.ones_like(base))
+        z = (torch.log(z0) if use_log else z0).requires_grad_(True)
+        # torch.optim.Adam with optax.adam's defaults (b1=0.9, b2=0.999,
+        # eps=1e-8, eps_root=0): the same update formula,
+        # z -= lr·m̂ / (√v̂ + eps) with bias-corrected moments
+        opt = torch.optim.Adam([z], lr=learning_rate, betas=(0.9, 0.999),
+                               eps=1e-8)
+
+        best_v, best_z = np.inf, z.detach().clone()
+        for step in range(n_steps):
+            opt.zero_grad()
+            with torch.enable_grad():
+                theta = torch.where(free, from_opt(z), base)
+                loss = -eng.elbo_fixed(theta, t, y, yerr2, mu0, var0,
+                                       n_sweeps)
+                loss.backward()
+            opt.step()
+            v = float(loss.detach())
+            # the loss is that of the parameters before the step, and the
+            # parameters kept are those after it, as the JAX package's
+            # loop keeps them
+            if v < best_v:
+                best_v, best_z = v, z.detach().clone()
+            if callback is not None:
+                callback(step, v)
+
+        theta = torch.where(free, from_opt(best_z), base).cpu().numpy()
+        self.set_parameters(theta)
+        # refresh the variational cache at the optimum
+        elbo, *_ = self.ELBOcalc(mu='previous', var='previous')
+        return {'fun': best_v, 'x': theta[free_np], 'elbo': elbo,
+                'n_steps': n_steps}
 
     # ------------------------------------------------------------------
     # prediction

@@ -1,12 +1,15 @@
 """GPRN mean-field variational inference — engine on torch tensors.
 
-Port of the fit-and-predict subset of :mod:`gpyrn_tpu.models.gprn`: the
-closed-form coordinate-ascent sweep (eqs. 16–19 of Nguyen & Bonilla
-2013) batched over the q-node and (q × p)-weight lattice, the three ELBO
-terms, the reference stopping rule, and the posterior predictive.  The
-JAX package fuses the fit into one ``lax.while_loop``; here it is an
+Port of the fit, gradient and prediction subset of
+:mod:`gpyrn_tpu.models.gprn`: the closed-form coordinate-ascent sweep
+(eqs. 16–19 of Nguyen & Bonilla 2013) batched over the q-node and
+(q × p)-weight lattice, the three ELBO terms, the reference stopping rule,
+the fixed-count sweeps and their gradient, and the posterior predictive.
+The JAX package fuses the fit into one ``lax.while_loop``; here it is an
 eager Python loop whose only host synchronisation is the stopping test,
-once per sweep.
+once per sweep.  The fixed-count sweeps are a plain loop (the JAX
+package's masked power-of-two sweep bucketing is a compile-count device
+of XLA and is not ported), differentiated by autograd.
 
 Numerical-parity notes (the JAX package's, ``gpyrn_tpu/models/gprn.py:16-33``):
 
@@ -211,9 +214,11 @@ class Engine:
         """diag Σ = d − d²·diag(A⁻¹) for Σ = K − K A⁻¹ K, A = K + diag(d),
         clamped to Σ's PSD-order envelopes Σ ⪯ diag(d), Σ ⪯ K."""
         d_sig = d_add - d_add * d_add * dAinv
-        return torch.minimum(
-            torch.clamp_min(d_sig, torch.finfo(d_sig.dtype).tiny),
-            torch.minimum(Kdiag, d_add))
+        # maximum / minimum, not clamp: at a tie they split the gradient
+        # in half between the two sides, as JAX's clip does
+        tiny = d_sig.new_full((), torch.finfo(d_sig.dtype).tiny)
+        return torch.minimum(torch.maximum(d_sig, tiny),
+                             torch.minimum(Kdiag, d_add))
 
     def _sigma_apply(self, L, K, rhs, d_add, dAinv):
         """(Σ @ rhs, diag Σ) for Σ = K − K A⁻¹ K given chol L of
@@ -225,19 +230,16 @@ class Engine:
                                  torch.diagonal(K, dim1=1, dim2=2))
         return sig_rhs, d_sig
 
-    def _sweep(self, Kf, Kw_flat, L_all, Linv_nodes, y_c, y_raw, variance,
-               muF, varF, muW, varW):
-        """One ELBOaux step, Σ-free: the posterior covariances
-        Σ = K − K A⁻¹ K (A = K + D⁻¹) are never formed.
+    def _updates(self, Kf, Kw_flat, y_c, variance, muF, varF, muW, varW):
+        """The coordinate-ascent updates (eqs. 16-19), Σ-free:
 
             μ          = K r − K A⁻¹ (K r)
             diag Σ     = d − d²·diag(A⁻¹),  d = diag(D⁻¹)
-            log det Σ  = log det K − log det A − log det D
-            tr(K⁻¹ Σ)  = tr(A⁻¹ D⁻¹) = Σⱼ dⱼ (A⁻¹)ⱼⱼ
 
-        Shapes: Kf (q,N,N), Kw_flat (q·p,N,N) [index j·p+i], L_all
-        (q·(1+p),N,N), Linv_nodes (q,N,N) [None when q == 1], y_* (p,N),
-        variance (p,N), muF/varF (q,N), muW/varW (p,q,N)."""
+        Returns the new ``(mu_f, dSf, mu_w, dSw_qp)`` and the factors the
+        ELBO terms reuse, ``(dv, inv_dv, Laf, dAinv_f, ratio, Law,
+        dAinv_w)``.  Shapes: Kf (q,N,N), Kw_flat (q·p,N,N) [index j·p+i],
+        y_c (p,N), variance (p,N), muF/varF (q,N), muW/varW (p,q,N)."""
         q, p, N = self.spec.q, self.spec.p, self.spec.N
         qp = q * p
 
@@ -268,6 +270,32 @@ class Engine:
                                            dAinv_w)
         mu_w = mu_w_flat.reshape(q, p, N).permute(1, 0, 2)       # (p,q,N)
         dSw_qp = dSw.reshape(q, p, N)
+        return (mu_f, dSf, mu_w, dSw_qp,
+                (dv, inv_dv, Laf, dAinv_f, ratio, Law, dAinv_w))
+
+    def _sweep_updates(self, Kf, Kw_flat, y_c, variance, muF, varF, muW,
+                       varW):
+        """The updates alone, no ELBO terms (no Cholesky of K or Σ):
+        ``(muF, varF, muW, varW)`` of the next sweep."""
+        mu_f, dSf, mu_w, dSw_qp, _ = self._updates(
+            Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
+        return mu_f, dSf, mu_w, dSw_qp.permute(1, 0, 2)
+
+    def _sweep(self, Kf, Kw_flat, L_all, Linv_nodes, y_c, y_raw, variance,
+               muF, varF, muW, varW):
+        """One ELBOaux step: the updates, then the ELBO at the new state,
+        Σ-free (Σ = K − K A⁻¹ K, A = K + D⁻¹, is never formed):
+
+            log det Σ  = log det K − log det A − log det D
+            tr(K⁻¹ Σ)  = tr(A⁻¹ D⁻¹) = Σⱼ dⱼ (A⁻¹)ⱼⱼ
+
+        Shapes as :meth:`_updates`, plus L_all (q·(1+p),N,N), Linv_nodes
+        (q,N,N) [None when q == 1], y_raw (p,N)."""
+        q, p, N = self.spec.q, self.spec.p, self.spec.N
+        qp = q * p
+        mu_f, dSf, mu_w, dSw_qp, factors = self._updates(
+            Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
+        dv, inv_dv, Laf, dAinv_f, ratio, Law, dAinv_w = factors
 
         # -- entropy: ½ Σ log det Σ by the determinant identity --
         def half_logdet(L):
@@ -383,6 +411,51 @@ class Engine:
         trace = torch.stack(trace) if trace else \
             torch.zeros(0, dtype=dtype, device=device)
         return elbo, mu, var, it, done, trace
+
+    # ---- fixed sweep counts and the gradient ------------------------------
+
+    def _static_sweeps(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
+        """``n_sweeps`` sweeps from (mu0, var0): n−1 updates-only sweeps,
+        then one full :meth:`_sweep` whose ELBO is the result.  Returns
+        ``(elbo, muF, varF, muW, varW)``."""
+        n_sweeps = int(n_sweeps)
+        if n_sweeps < 1:
+            raise ValueError("n_sweeps must be >= 1 (an unswept ELBO is "
+                             "undefined)")
+        prepared = self._prepare(theta, t, y, yerr2)
+        Kf, Kw_flat, _, _, y_c, _, variance = prepared
+        muF, muW = self._u_split(mu0.reshape(-1))
+        varF, varW = self._u_split(var0.reshape(-1))
+        for _ in range(n_sweeps - 1):
+            muF, varF, muW, varW = self._sweep_updates(
+                Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
+        return self._sweep(*prepared, muF, varF, muW, varW)
+
+    def elbo_fixed(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
+        """The ELBO after exactly ``n_sweeps`` sweeps from (mu0, var0):
+        a deterministic function of ``theta``, differentiable by
+        autograd."""
+        elbo, *_ = self._static_sweeps(theta, t, y, yerr2, mu0, var0,
+                                       n_sweeps)
+        return elbo
+
+    def elbo_refine(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
+        """``(elbo, mu, var)`` after exactly ``n_sweeps`` sweeps."""
+        elbo, muF, varF, muW, varW = self._static_sweeps(
+            theta, t, y, yerr2, mu0, var0, n_sweeps)
+        mu = torch.cat([muF.reshape(-1), muW.reshape(-1)])
+        var = torch.cat([varF.reshape(-1), varW.reshape(-1)])
+        return elbo, mu, var
+
+    def elbo_value_and_grad(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
+        """``(elbo, d elbo / d theta)`` of :meth:`elbo_fixed`, by autograd
+        through the ``n_sweeps`` unrolled sweeps (the starting state and
+        the data are constants), in the tensors' dtype."""
+        theta = theta.detach().requires_grad_(True)
+        with torch.enable_grad():
+            elbo = self.elbo_fixed(theta, t, y, yerr2, mu0, var0, n_sweeps)
+            (grad,) = torch.autograd.grad(elbo, theta)
+        return elbo.detach(), grad
 
     # ---- posterior predictive ---------------------------------------------
 

@@ -11,8 +11,11 @@ L⁻¹.  The factorization is left-looking and blocked; the O(N³) panel
 updates and the strip-by-strip inversion of L are batched matrix
 products, and only the T×T diagonal blocks go to ``cholesky_ex`` /
 ``solve_triangular``.  The JAX package leaves these to XLA; here they are
-torch.linalg / matmul calls on the blocks.  Buffers are updated in place
-(this path is forward-only).
+torch.linalg / matmul calls on the blocks.  Nothing is written in place:
+the factor is assembled from its column strips and L⁻¹ from its row
+strips with ``torch.cat``, so autograd differentiates through every
+strip (the gradient path, ``Engine.elbo_value_and_grad``, runs through
+here at every sweep).
 
 A failed factorization gives NaN, as ``jnp.linalg.cholesky`` does: the
 diagonal blocks are factored with ``cholesky_ex`` and the batch entries
@@ -55,6 +58,16 @@ def _tri_inv(L):
     return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
+def _pad_identity(A, Npad: int):
+    """A (B, N, N) batch padded to (B, Npad, Npad) with an identity tail
+    block, out of place."""
+    N = A.shape[-1]
+    A = torch.nn.functional.pad(A, (0, Npad - N, 0, Npad - N))
+    tail = torch.cat([torch.zeros(N, dtype=A.dtype, device=A.device),
+                      torch.ones(Npad - N, dtype=A.dtype, device=A.device)])
+    return A + torch.diag(tail)
+
+
 def blocked_cholesky(A, block: int = DEFAULT_BLOCK):
     """Left-looking blocked Cholesky of an SPD batch (B, N, N) →
     ``(L, Linv_d)``: the (identity-padded) lower factor and the
@@ -64,28 +77,31 @@ def blocked_cholesky(A, block: int = DEFAULT_BLOCK):
     Npad = _round_up(N, T)
     nb = Npad // T
     if Npad != N:
-        A = torch.nn.functional.pad(A, (0, Npad - N, 0, Npad - N))
-        idx = torch.arange(N, Npad, device=A.device)
-        A[:, idx, idx] = 1.0
+        A = _pad_identity(A, Npad)
 
-    L = torch.zeros_like(A)
+    cols = []        # cols[k]: column strip k of L from row k·T down
     linvs = []
     for i in range(nb):
         a = i * T
         if i:
-            top = L[:, a:a + T, :a]                       # (B, T, a)
+            # rows a: of L left of column a, from the finished strips
+            left = torch.cat([c[:, a - k * T:] for k, c in enumerate(cols)],
+                             dim=2)                       # (B, Npad-a, a)
+            top = left[:, :T]                             # (B, T, a)
             Aii = A[:, a:a + T, a:a + T] - top @ top.transpose(1, 2)
-            Ari = A[:, a + T:, a:a + T] - \
-                L[:, a + T:, :a] @ top.transpose(1, 2)
+            Ari = A[:, a + T:, a:a + T] - left[:, T:] @ top.transpose(1, 2)
         else:
             Aii = A[:, :T, :T]
             Ari = A[:, T:, :T]
         Lii = cholesky_nan(Aii)
         Linv = _tri_inv(Lii)
         linvs.append(Linv)
-        L[:, a:a + T, a:a + T] = Lii
         if i + 1 < nb:
-            L[:, a + T:, a:a + T] = Ari @ Linv.transpose(1, 2)   # Ari Lii⁻ᵀ
+            Lii = torch.cat([Lii, Ari @ Linv.transpose(1, 2)],   # Ari Lii⁻ᵀ
+                            dim=1)
+        cols.append(Lii)
+    L = torch.cat([torch.nn.functional.pad(c, (0, 0, k * T, 0))
+                   for k, c in enumerate(cols)], dim=2)
     return L, torch.stack(linvs, dim=1)
 
 
@@ -107,14 +123,13 @@ def diag_Ainv(L, Linv_d=None, block: int = DEFAULT_BLOCK,
                           for i in range(nb)], dim=1)
         Linv_d = _tri_inv(Ld)
 
-    X = torch.zeros((B, Npad, Npad), dtype=L.dtype, device=L.device)
-    for i in range(nb):
+    X = Linv_d[:, 0]                    # X[:, :a, :a], grown strip by strip
+    for i in range(1, nb):
         a = i * T
         Linv = Linv_d[:, i]
-        if i:
-            S = L[:, a:a + T, :a] @ X[:, :a, :a]
-            X[:, a:a + T, :a] = -(Linv @ S)
-        X[:, a:a + T, a:a + T] = Linv
+        S = L[:, a:a + T, :a] @ X
+        row = torch.cat([-(Linv @ S), Linv], dim=2)       # (B, T, a + T)
+        X = torch.cat([torch.nn.functional.pad(X, (0, T)), row], dim=1)
     acc = torch.sum(X * X, dim=1)
     n = Npad if n_valid is None else n_valid
     return acc[:, :n]

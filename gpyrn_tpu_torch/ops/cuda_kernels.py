@@ -1,4 +1,4 @@
-"""Dense kernel matrices: the hand-written CUDA kernel and its plain twin.
+"""Dense kernel matrices: the hand-written CUDA kernels and their plain twins.
 
 Replaces ``gpyrn_tpu/ops/pallas_kernels.py::_build`` (the tiled Pallas
 kernel; public wrapper ``pallas_kernel_matrix``).  It computes, for one
@@ -21,22 +21,34 @@ lowered here to a postfix program (:func:`encode_program`) that the one
 compiled kernel evaluates per element, so no structure needs its own
 build.
 
+Its gradient with respect to ``params`` is a second kernel of the same
+source (B1′, :func:`kernel_matrix_grad_cuda`): the contraction
+``g[m] = Σᵢⱼ G[i, j] ∂k(t_i − t_j)/∂params[m]`` of the adjoint G with the
+kernel's parameter derivatives, where the JAX package takes the gradient
+by autodiff through the Pallas kernel.  ``_KernelMatrix`` joins the two
+for autograd; the jitter is computed outside it by differentiable tensor
+ops, so its gradient is ``trace(G)`` chained through ``k(0)``.  ``t``
+takes no gradient (the JAX package differentiates θ only).
+
 :func:`kernel_matrix_cuda` launches the kernel on a CUDA tensor and
-raises on anything else.  :func:`kernel_matrix_ref` is the plain PyTorch
-version: the CPU path runs it, and on the card only the tests and
-``chip_smoke.py`` call it, to compare.
+raises on anything else.  :func:`kernel_matrix_ref` and
+:func:`kernel_matrix_grad_ref` are the plain PyTorch versions: the CPU
+path runs the first (and autograd through it), and on the card only the
+tests and ``chip_smoke.py`` call them, to compare.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from gpyrn_tpu_torch.ops import _build
 from gpyrn_tpu_torch.ops import kernels as _k
 
-__all__ = ["OPCODES", "cuda_supported", "encode_program",
-           "kernel_matrix_ref", "kernel_matrix_cuda", "LAUNCHES",
+__all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
+           "kernel_matrix_ref", "kernel_matrix_cuda",
+           "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda", "LAUNCHES",
            "reset_launch_counts"]
 
 # Op codes of the postfix program.  Must equal ``enum Op`` in
@@ -50,6 +62,9 @@ OPCODES = {
 MAX_OPS = 32
 MAX_STACK = 8
 MAX_PARAMS = 64
+# Tile of both kernels (csrc TILE_X / TILE_Y): B1′ writes one partial row
+# per tile.
+TILE = 32
 
 # The stationary leaves the kernel evaluates: the Pallas kernel's set
 # (``pallas_kernels.py::_SAFE_TAGS``).  WhiteNoise (it branches on the
@@ -58,7 +73,7 @@ MAX_PARAMS = 64
 _LEAVES = frozenset(OPCODES) - {"+", "*"}
 
 # Launches of each kernel, counted where the kernel is launched.
-LAUNCHES = {"kernel_matrix": 0}
+LAUNCHES = {"kernel_matrix": 0, "kernel_matrix_grad": 0}
 
 
 def reset_launch_counts() -> None:
@@ -74,35 +89,47 @@ def cuda_supported(structure) -> bool:
     return tag in _LEAVES
 
 
-def encode_program(structure):
-    """Lower a supported structure tree to the kernel's postfix program.
+class Program(NamedTuple):
+    """The kernels' postfix program: per entry an op code, a parameter
+    offset (leaves read ``params[offset:]``) and, for ``+`` / ``*``, the
+    indices of the two entries it combines (−1 at a leaf), which the
+    backward kernel walks in reverse; ``depth`` is the deepest stack the
+    forward evaluation reaches."""
+    ops: list
+    offsets: list
+    lhs: list
+    rhs: list
+    depth: int
 
-    Returns ``(ops, offsets, depth)``: one op code and one parameter
-    offset per entry (leaves push ``k(r)`` with their parameters at
-    ``params[offset:]``; ``+`` / ``*`` combine the top two entries), and
-    the deepest stack the program reaches."""
+
+def encode_program(structure) -> Program:
+    """Lower a supported structure tree to the kernels' postfix program."""
     if not cuda_supported(structure):
         raise ValueError(f"structure {structure!r} has no CUDA kernel")
-    ops, offsets = [], []
+    ops, offsets, lhs, rhs = [], [], [], []
+
+    def emit(op, off, left, right):
+        ops.append(op)
+        offsets.append(off)
+        lhs.append(left)
+        rhs.append(right)
+        return len(ops) - 1
 
     def walk(s, off, depth):
+        """Emit ``s``; return (its entry's index, the deepest stack)."""
         tag = s[0]
         if tag in ("+", "*"):
-            d1 = walk(s[1], off, depth)
-            d2 = walk(s[2], off + _k.n_params(s[1]), depth + 1)
-            ops.append(OPCODES[tag])
-            offsets.append(0)
-            return max(d1, d2)
-        ops.append(OPCODES[tag])
-        offsets.append(off)
-        return depth + 1
+            i1, d1 = walk(s[1], off, depth)
+            i2, d2 = walk(s[2], off + _k.n_params(s[1]), depth + 1)
+            return emit(OPCODES[tag], 0, i1, i2), max(d1, d2)
+        return emit(OPCODES[tag], off, -1, -1), depth + 1
 
-    depth = walk(structure, 0, 0)
+    _, depth = walk(structure, 0, 0)
     if len(ops) > MAX_OPS or depth > MAX_STACK:
         raise ValueError(f"structure {structure!r} needs {len(ops)} ops and "
                          f"stack depth {depth}; the kernel takes at most "
                          f"{MAX_OPS} and {MAX_STACK}")
-    return ops, offsets, depth
+    return Program(ops, offsets, lhs, rhs, depth)
 
 
 def _jitter(structure, params, t, nugget, jitter_mult):
@@ -111,7 +138,9 @@ def _jitter(structure, params, t, nugget, jitter_mult):
     k0 = _k.evaluate(structure, params,
                      r=torch.zeros((), dtype=t.dtype, device=t.device))
     eps = torch.finfo(t.dtype).eps
-    return torch.clamp_min(jitter_mult * eps * t.shape[0] * k0, nugget)
+    # maximum, not clamp_min: at a tie the gradient splits as in JAX
+    return torch.maximum(jitter_mult * eps * t.shape[0] * k0,
+                         k0.new_full((), nugget))
 
 
 def kernel_matrix_ref(structure, params, t, nugget, jitter_mult):
@@ -123,18 +152,39 @@ def kernel_matrix_ref(structure, params, t, nugget, jitter_mult):
     return K + jitter * torch.eye(t.shape[0], dtype=t.dtype, device=t.device)
 
 
-_SYMBOLS = {torch.float64: "gpyrn_kernel_matrix_f64",
-            torch.float32: "gpyrn_kernel_matrix_f32"}
+def kernel_matrix_grad_ref(structure, params, t, G):
+    """Plain PyTorch version of B1′: ``Σᵢⱼ G[i, j] ∂k(t_i − t_j)/∂params``
+    (the kernel matrix without its jitter), by autograd through the
+    registry formula."""
+    p = params.detach().requires_grad_(True)
+    with torch.enable_grad():
+        K = _k.evaluate(structure, p, r=t[:, None] - t[None, :])
+        (g,) = torch.autograd.grad(K, p, grad_outputs=G)
+    return g
 
 
-def _function(dtype):
-    lib = _build.load("kernel_matrix")
-    fn = getattr(lib, _SYMBOLS[dtype])
+# the library's entry points per dtype: (B1, B1′)
+_SYMBOLS = {torch.float64: ("gpyrn_kernel_matrix_f64",
+                            "gpyrn_kernel_matrix_grad_f64"),
+            torch.float32: ("gpyrn_kernel_matrix_f32",
+                            "gpyrn_kernel_matrix_grad_f32")}
+
+
+def _function(dtype, grad=False):
+    fn = getattr(_build.load("kernel_matrix"), _SYMBOLS[dtype][int(grad)])
     p = ctypes.c_void_p
-    fn.argtypes = [ctypes.c_int, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                   p, p, ctypes.c_int, p]
+    if grad:
+        fn.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_int,
+                       ctypes.c_int, p, p, p, p, ctypes.c_int, p]
+    else:
+        fn.argtypes = [ctypes.c_int, p, p, p, p, ctypes.c_int, ctypes.c_int,
+                       p, p, ctypes.c_int, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _check(structure, params, t):
@@ -162,42 +212,86 @@ def _check(structure, params, t):
                          f"the kernel takes at most {MAX_PARAMS}")
 
 
+def _launch_grad(structure, params, t, G):
+    """B1′ on the card: the (n_params,) contraction of G with dK/dparams."""
+    prog = encode_program(structure)
+    n, n_par = t.shape[0], params.shape[0]
+    tiles = -(-n // TILE)
+    partial = torch.empty((tiles * tiles, n_par), dtype=t.dtype,
+                          device=t.device)
+    out = torch.empty((n_par,), dtype=t.dtype, device=t.device)
+    err = _function(t.dtype, grad=True)(
+        t.device.index, t.data_ptr(), params.data_ptr(), G.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), n, n_par, _ints(prog.ops),
+        _ints(prog.offsets), _ints(prog.lhs), _ints(prog.rhs), len(prog.ops),
+        torch.cuda.current_stream(t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel_matrix_grad launch failed with CUDA "
+                           f"error {err} (N={n}, {t.dtype})")
+    LAUNCHES["kernel_matrix_grad"] += 1
+    return out
+
+
 class _KernelMatrix(torch.autograd.Function):
-    """Forward-only for now: the gradient needs B1's backward kernel (the
-    dK/dθ contraction), which comes with the gradient path."""
+    """K = kernel(t; params) + jitter·I by B1, its backward by B1′; the
+    jitter (a 0-d tensor) gets trace(G)."""
 
     @staticmethod
-    def forward(ctx, params, t, structure, nugget, jitter_mult):
-        ops, offsets, _ = encode_program(structure)
+    def forward(ctx, params, jitter, t, structure):
+        prog = encode_program(structure)
         n = t.shape[0]
-        jitter = _jitter(structure, params, t, nugget, jitter_mult)
         out = torch.empty((n, n), dtype=t.dtype, device=t.device)
-        fn = _function(t.dtype)
-        err = fn(t.device.index, t.data_ptr(), params.data_ptr(),
-                 jitter.data_ptr(), out.data_ptr(), n, params.shape[0],
-                 (ctypes.c_int * len(ops))(*ops),
-                 (ctypes.c_int * len(offsets))(*offsets), len(ops),
-                 torch.cuda.current_stream(t.device).cuda_stream)
+        err = _function(t.dtype)(
+            t.device.index, t.data_ptr(), params.data_ptr(),
+            jitter.data_ptr(), out.data_ptr(), n, params.shape[0],
+            _ints(prog.ops), _ints(prog.offsets), len(prog.ops),
+            torch.cuda.current_stream(t.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"kernel_matrix launch failed with CUDA "
                                f"error {err} (N={n}, {t.dtype})")
         LAUNCHES["kernel_matrix"] += 1
+        ctx.save_for_backward(params, t)
+        ctx.structure = structure
         return out
 
     @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "kernel_matrix_cuda has no backward kernel yet: gradients "
-            "through the CUDA kernel-matrix kernel come with the "
-            "elbo_value_and_grad port")
+    def backward(ctx, G):
+        params, t = ctx.saved_tensors
+        g_params = g_jitter = None
+        if ctx.needs_input_grad[0]:
+            g_params = _launch_grad(ctx.structure, params, t, G.contiguous())
+        if ctx.needs_input_grad[1]:
+            g_jitter = torch.diagonal(G).sum()
+        return g_params, g_jitter, None, None
 
 
 def kernel_matrix_cuda(structure, params, t, nugget, jitter_mult):
-    """Dense K(t, t) + jitter·I on the card, by the CUDA kernel.
+    """Dense K(t, t) + jitter·I on the card, by the CUDA kernel;
+    differentiable with respect to ``params`` (B1′ in the backward).
 
-    ``t`` is a contiguous (N,) float32/float64 CUDA tensor, ``params`` the
-    structure's (n_params,) core parameters on the same device in the same
-    dtype.  Launches on the current stream and does not synchronise."""
+    ``t`` is a contiguous (N,) float32/float64 CUDA tensor that takes no
+    gradient, ``params`` the structure's (n_params,) core parameters on the
+    same device in the same dtype.  Launches on the current stream and does
+    not synchronise."""
     _check(structure, params, t)
-    return _KernelMatrix.apply(params, t, structure, float(nugget),
-                               float(jitter_mult))
+    if t.requires_grad:
+        raise ValueError("kernel_matrix_cuda differentiates params only; "
+                         "t must not require grad")
+    jitter = _jitter(structure, params, t, float(nugget), float(jitter_mult))
+    return _KernelMatrix.apply(params, jitter, t, structure)
+
+
+def kernel_matrix_grad_cuda(structure, params, t, G):
+    """B1′ on the card: ``Σᵢⱼ G[i, j] ∂k(t_i − t_j)/∂params`` as an
+    (n_params,) tensor (the jitter excluded), for the same arguments as
+    :func:`kernel_matrix_cuda` and an (N, N) adjoint ``G`` in t's dtype on
+    t's device.  Launches two kernels on the current stream (the
+    per-tile partial sums and their fixed-order total) and does not
+    synchronise."""
+    _check(structure, params, t)
+    n = t.shape[0]
+    if (not isinstance(G, torch.Tensor) or G.device != t.device
+            or G.dtype != t.dtype or tuple(G.shape) != (n, n)):
+        raise ValueError(f"G must be an ({n}, {n}) tensor on t's device and "
+                         f"in t's dtype")
+    return _launch_grad(structure, params, t, G.contiguous())

@@ -78,7 +78,9 @@ def kernel_matrix(structure, params, t, nugget=TRAIN_NUGGET):
     else:
         K = _k.evaluate(structure, params, r=t[:, None] - t[None, :])
     eps = torch.finfo(K.dtype).eps
-    jitter = torch.clamp_min(F32_JITTER_MULT * eps * torch.trace(K), nugget)
+    # maximum, not clamp_min: at a tie the gradient splits as in JAX
+    jitter = torch.maximum(F32_JITTER_MULT * eps * torch.trace(K),
+                           K.new_full((), nugget))
     return K + jitter * _eye(t)
 
 

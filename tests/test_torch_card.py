@@ -1,5 +1,6 @@
-"""gpyrn_tpu_torch on the card: the CUDA kernel-matrix kernel against its
-plain twin, and the main path on the card against the same on the CPU.
+"""gpyrn_tpu_torch on the card: the CUDA kernel-matrix kernel (B1) and its
+backward (B1′) against their plain twins, and the main path and the
+gradient path on the card against the same on the CPU.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode).  The file imports no jax, so the card's machine runs it
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import LEAF_CASES
 import gpyrn_tpu_torch as gt
 from gpyrn_tpu_torch.ops import cuda_kernels as ck
 from gpyrn_tpu_torch.ops import kernels as tk
@@ -83,14 +85,87 @@ def test_wrapper_refuses_what_it_does_not_take(cuda):
         ck.kernel_matrix_cuda(("SE",), p, t.half(), 1e-6, 4.0)
 
 
+GRAD_CASES = LEAF_CASES + CASES
+
+
+def _abs_contraction(structure, p, t, G):
+    """Σ |G| |∂k/∂θ| per parameter, the scale of the B1′ tolerance."""
+    r = t[:, None] - t[None, :]
+    out = []
+    for m in range(p.shape[0]):
+        e = torch.zeros_like(p)
+        e[m] = 1.0
+        _, dk = torch.func.jvp(lambda q: tk.evaluate(structure, q, r=r),
+                               (p,), (e,))
+        out.append((G.abs() * dk.abs()).sum())
+    return torch.stack(out)
+
+
 @pytest.mark.cuda
-def test_kernel_has_no_backward(cuda):
-    t = torch.tensor(_times(20), dtype=torch.float64, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("structure,pars", GRAD_CASES)
+def test_grad_kernel_matches_twin(structure, pars, dtype, cuda):
+    """B1′ against autograd of the plain version, r = 0 included (the
+    diagonal and a repeated time): |difference| ≤ 1e-12 (f64) or 1e-4
+    (f32) of Σ |G| |∂k/∂θ| per parameter, since the two sum in other
+    orders and take the derivatives by other operations."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for N in (1, 3, 33, 257, 1000):
+        times = _times(N)
+        if N > 5:
+            times[5] = times[4]
+        t = torch.tensor(times, dtype=dtype, device=cuda)
+        p = torch.tensor(pars, dtype=dtype, device=cuda)
+        G = torch.tensor(np.random.default_rng(N).standard_normal((N, N)),
+                         dtype=dtype, device=cuda)
+        before = ck.LAUNCHES["kernel_matrix_grad"]
+        got = ck.kernel_matrix_grad_cuda(structure, p, t, G)
+        assert ck.LAUNCHES["kernel_matrix_grad"] == before + 1
+        ref = ck.kernel_matrix_grad_ref(structure, p, t, G)
+        scale = _abs_contraction(structure, p, t, G)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() <= tol * scale).all()), \
+            (structure, N, got, ref)
+
+
+@pytest.mark.cuda
+def test_kernel_backward_launches_the_grad_kernel(cuda):
+    """Autograd through kernel_matrix_cuda reaches B1′ (and the jitter's
+    trace(G)), and agrees with autograd through the plain version."""
+    t = torch.tensor(_times(64), dtype=torch.float64, device=cuda)
+    G = torch.tensor(np.random.default_rng(1).standard_normal((64, 64)),
+                     dtype=torch.float64, device=cuda)
+    for mult in (tlin.F32_JITTER_MULT, 1e9):     # nugget wins / scaled wins
+        p = torch.tensor([1.1, 20.0, 13.0, 0.6], dtype=torch.float64,
+                         device=cuda, requires_grad=True)
+        before = dict(ck.LAUNCHES)
+        K = ck.kernel_matrix_cuda(("QP",), p, t, 1e-6, mult)
+        (g,) = torch.autograd.grad(K, p, grad_outputs=G)
+        assert ck.LAUNCHES["kernel_matrix"] == before["kernel_matrix"] + 1
+        assert ck.LAUNCHES["kernel_matrix_grad"] == \
+            before["kernel_matrix_grad"] + 1
+        p_ref = p.detach().requires_grad_(True)
+        K_ref = ck.kernel_matrix_ref(("QP",), p_ref, t, 1e-6, mult)
+        (g_ref,) = torch.autograd.grad(K_ref, p_ref, grad_outputs=G)
+        torch.testing.assert_close(g, g_ref, rtol=1e-11, atol=1e-11)
+    with pytest.raises(ValueError, match="t must not require grad"):
+        ck.kernel_matrix_cuda(("QP",), p, t.clone().requires_grad_(True),
+                              1e-6, 4.0)
+
+
+@pytest.mark.cuda
+def test_linalg_gradient_reaches_the_grad_kernel(cuda):
+    """On a CUDA tensor the gradient of ops/linalg.kernel_matrix goes
+    through B1′, never through the plain version's autograd."""
+    t = torch.tensor(_times(64), dtype=torch.float64, device=cuda)
     p = torch.tensor([1.2, 8.0], dtype=torch.float64, device=cuda,
                      requires_grad=True)
-    K = ck.kernel_matrix_cuda(("SE",), p, t, 1e-6, 4.0)
-    with pytest.raises(NotImplementedError):
-        K.sum().backward()
+    before = ck.LAUNCHES["kernel_matrix_grad"]
+    K = tlin.kernel_matrix(("SE",), p, t)
+    assert K.grad_fn is not None and "KernelMatrix" in type(K.grad_fn).__name__
+    K.sum().backward()
+    assert ck.LAUNCHES["kernel_matrix_grad"] == before + 1
 
 
 @pytest.mark.cuda
@@ -140,3 +215,26 @@ def test_main_path_on_card_matches_cpu(cuda):
     _, m_cpu, s_cpu, _ = g_cpu.predict(nn=64)
     torch.testing.assert_close(m_gpu.cpu(), m_cpu, rtol=1e-7, atol=1e-7)
     torch.testing.assert_close(s_gpu.cpu(), s_cpu, rtol=1e-7, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_gradient_path_on_card_matches_cpu(cuda):
+    """elbo_value_and_grad of the same model on the card and on the CPU:
+    value relative 1e-9, gradient 1e-7 of max |g|; B1 and B1′ each run
+    q + q·p = 8 times per call."""
+    values = {}
+    for device in (cuda, "cpu"):
+        g = _model(device)
+        theta = g._theta()
+        mu0, var0 = g.engine.init_mu_var(theta, g._tensor(g.y))
+        before = dict(ck.LAUNCHES)
+        values[str(device)] = g.engine.elbo_value_and_grad(
+            theta, *g._data(), mu0, var0, 3)
+        launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        expected = 8 if device == cuda else 0
+        assert launched == {"kernel_matrix": expected,
+                            "kernel_matrix_grad": expected}
+    (v_gpu, g_gpu), (v_cpu, g_cpu) = values["cuda"], values["cpu"]
+    assert abs(float(v_gpu) - float(v_cpu)) <= 1e-9 * abs(float(v_cpu))
+    assert float((g_gpu.cpu() - g_cpu).abs().max()) <= \
+        1e-7 * float(g_cpu.abs().max())

@@ -151,7 +151,8 @@ PROGRAM_CASES = CASES + [
 
 @pytest.mark.parametrize("structure,pars", PROGRAM_CASES)
 def test_program_encodes_structure(structure, pars):
-    ops, offsets, depth = ck.encode_program(structure)
+    prog = ck.encode_program(structure)
+    ops, offsets, depth = prog.ops, prog.offsets, prog.depth
     n_leaves = sum(op not in (ck.OPCODES["+"], ck.OPCODES["*"])
                    for op in ops)
     assert len(ops) == 2 * n_leaves - 1
@@ -161,6 +162,49 @@ def test_program_encodes_structure(structure, pars):
     got = _run_program(ops, offsets, pars, r)
     ref = tk.evaluate(structure, _f64(pars), r=_f64(r))
     np.testing.assert_array_equal(got, ref.numpy())
+
+
+def _run_by_children(prog, pars, r):
+    """numpy evaluation of the program through its child indices (the
+    order the backward kernel walks), instead of the stack."""
+    names = {code: tag for tag, code in ck.OPCODES.items()}
+    val = []
+    for op, off, lhs, rhs in zip(prog.ops, prog.offsets, prog.lhs, prog.rhs):
+        tag = names[op]
+        if tag in ("+", "*"):
+            assert 0 <= lhs < len(val) and 0 <= rhs < len(val)
+            val.append(val[lhs] + val[rhs] if tag == "+"
+                       else val[lhs] * val[rhs])
+        else:
+            assert lhs == rhs == -1
+            n = tk.n_params((tag,))
+            val.append(tk.evaluate((tag,), _f64(pars[off:off + n]),
+                                   r=_f64(r)).numpy())
+    return val[-1]
+
+
+@pytest.mark.parametrize("structure,pars", PROGRAM_CASES)
+def test_program_children_name_the_operands(structure, pars):
+    """Every + / * entry names the two entries it combines; each entry but
+    the last is the operand of exactly one other, and the evaluation by
+    child indices equals the tree's."""
+    prog = ck.encode_program(structure)
+    children = [c for c in prog.lhs + prog.rhs if c >= 0]
+    assert sorted(children) == list(range(len(prog.ops) - 1))
+    t = _times(30)
+    r = t[:, None] - t[None, :]
+    np.testing.assert_array_equal(
+        _run_by_children(prog, pars, r),
+        tk.evaluate(structure, _f64(pars), r=_f64(r)).numpy())
+
+
+def test_program_children_of_a_small_tree():
+    prog = ck.encode_program(("*", ("+", ("SE",), ("C",)), ("QP",)))
+    assert prog.ops == [3, 2, 0, 5, 1]
+    assert prog.offsets == [0, 2, 0, 3, 0]
+    assert prog.lhs == [-1, -1, 0, -1, 2]
+    assert prog.rhs == [-1, -1, 1, -1, 3]
+    assert prog.depth == 2
 
 
 def test_program_rejects_what_the_kernel_cannot_take():
@@ -183,6 +227,9 @@ def test_cuda_source_tables_match_python():
     for name in ("MAX_OPS", "MAX_STACK", "MAX_PARAMS"):
         value = re.search(rf"#define {name} (\d+)", src).group(1)
         assert int(value) == getattr(ck, name), name
+    for name in ("TILE_X", "TILE_Y"):     # B1′'s partial rows, one per tile
+        value = re.search(rf"#define {name} (\d+)", src).group(1)
+        assert int(value) == ck.TILE, name
     # every leaf op has a case in the kernel's switch
     for name in expected:
         if name not in ("ADD", "MUL"):

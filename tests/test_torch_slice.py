@@ -107,10 +107,10 @@ def _small(device="cpu"):
 def test_shell_invariants():
     t = np.arange(5.0)
     with pytest.raises(ValueError):
-        gt.inference(1, t, t)                      # odd number of arrays
+        gt.inference(1, t, t, device="cpu")        # odd number of arrays
     with pytest.raises(ValueError):
-        gt.inference(1, t, t, t[:3])               # wrong lengths
-    g = gt.inference(2, t, t, t, t, t)
+        gt.inference(1, t, t, t[:3], device="cpu")  # wrong lengths
+    g = gt.inference(2, t, t, t, t, t, device="cpu")
     with pytest.raises(ValueError):
         g.ELBOcalc()                               # no components yet
     se = gt.covfunc.SquaredExponential(1.0, 2.0)
@@ -164,7 +164,7 @@ def test_imports_and_fits_without_jax():
         from gpyrn_tpu_torch import convert
         from gpyrn_tpu_torch.ops import cuda_kernels, _build
         t = np.linspace(0, 20, 12)
-        g = gt.inference(1, t, np.sin(t), np.full(12, 0.1))
+        g = gt.inference(1, t, np.sin(t), np.full(12, 0.1), device="cpu")
         g.set_components(gt.covfunc.SquaredExponential(1.0, 5.0),
                          gt.covfunc.SquaredExponential(1.0, 8.0),
                          None, 0.1)
