@@ -9,7 +9,11 @@ ends non-zero:
 1. environment: torch / CUDA / nvcc versions and the card's name and
    power limit (fails without a CUDA device);
 2. build: compiles ``gpyrn_tpu_torch/csrc/kernel_matrix.cu`` with nvcc
-   into ``gpyrn_tpu_torch/_build/`` and reports the time;
+   into ``gpyrn_tpu_torch/_build/`` and reports the time, what
+   ``-Xptxas -v`` says of every kernel instance the two models use
+   (registers, stack frame, spills; a spill or an unexplained stack frame
+   fails the run) and, where the toolkit has ``cuobjdump``, their FP64
+   operation counts in the SASS;
 3. the gradient path, headline model (N=1000, q=1, p=3, QuasiPeriodic
    node, SquaredExponential weights): the 30-sweep
    ``elbo_value_and_grad`` in float64 against the JAX package's cached
@@ -26,12 +30,17 @@ ends non-zero:
    card, and a traced fit;
 7. the fit path, flagship model: the same checks;
 8. B1 (the kernel-matrix kernel) vs its plain version on the card: six
-   structures, N ∈ {3, 255, 257, 1000, 4096}, float64 and float32, jitter
-   multiplier 4 and 0;
+   structures, N ∈ {1, 3, 31, 32, 33, 255, 257, 1000, 4096}, float64 and
+   float32, jitter multiplier 4 and 0; every output equals its transpose
+   exactly;
 9. B1′ (its backward, the dK/dθ contraction) vs its plain version
-   (autograd): the 18 leaves and the six structures, N ∈ {3, 257, 1000,
-   4096}, float64 and float32, a random adjoint per case;
-10. in a fresh process (``chip_smoke.py --profile``): a traced 30-sweep
+   (autograd): the 18 leaves and the six structures, N ∈ {1, 3, 31, 32,
+   33, 257, 1000, 4096}, float64 and float32, a random (non-symmetric)
+   adjoint per case; a second call gives the same bits;
+10. ``kernel_matrix_stack_cuda`` (the lattice of kernel matrices built
+    into one buffer) vs its plain version: values and gradients of a
+    QP + 3 × SE list, float64 and float32;
+11. in a fresh process (``chip_smoke.py --profile``): a traced 30-sweep
     gradient call of the headline model, then B1's and B1′'s device times
     against their plain versions' and their bounds.  After some dozens of
     profiled runs and ~150k traced kernels in one process,
@@ -47,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,17 +97,35 @@ F32_GRAD_TOL = 0.1
 # sum in other orders (per-thread, per-block tree, then the rows), so
 # they differ by rounding of the order eps·log(N²)
 GRAD_KERNEL_TOL = {"float64": 1e-12, "float32": 1e-4}
-GRAD_NS = (3, 257, 1000, 4096)
+GRAD_NS = (1, 3, 31, 32, 33, 257, 1000, 4096)
+# the stacked function's gradients against autograd of its plain version,
+# max |Δg| / max |g| per parameter tensor: B1′'s rounding plus the jitter's
+# trace(G), summed in another order
+STACK_GRAD_TOL = {"float64": 1e-11, "float32": 1e-3}
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s in float32 and 34 TFLOP/s in float64
 # outside the tensor cores.  The kernels do no matrix products.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
-# operations per element of the timed structure (QP), from the kernels'
+# operations per lag of the timed structure (QP), from the kernels'
 # source, each add, multiply, divide, abs and each exp / sin / cos counted
-# once (a transcendental costs the card many more: a lower bound)
-OPS_PER_ELEMENT = {"kernel_matrix": 17, "kernel_matrix_grad": 43}
+# once (a transcendental costs the card many more: a lower bound).  Both
+# kernels compute each lag once: N (N + 1) / 2 lags.
+OPS_PER_LAG = {"kernel_matrix": 17, "kernel_matrix_grad": 33}
+# The same kernels' device times (ms; QP, float64, N=1000) before their
+# redesign, by the same method (``_device_ms``) on an NVIDIA H100 80GB
+# HBM3 at 700 W: the ``earlier_ms`` of the kernels' record.
+EARLIER_MS = {"kernel_matrix": 0.01439, "kernel_matrix_grad": 0.03079}
+# the single-leaf kernel instances the two models run (op codes of
+# ``cuda_kernels.OPCODES``)
+MAIN_PATH_LEAVES = ("QP", "SE", "P", "M52")
+# B1 must round as the plain version does, so it calls the CUDA math
+# library's sinf / cosf, whose large-argument reduction (never taken at
+# these lags) keeps a small array on the stack in float32; nothing else
+# may have a stack frame
+SINF_FRAME_BYTES = 32
+PERIODIC_LEAVES = ("QP", "P")
 
 
 def headline_problem(pkg, N=N_MAIN, **kw):
@@ -148,7 +176,7 @@ KERNEL_CASES = [
     (("+", ("SE",), ("M32",)), (1.0, 8.0, 0.5, 3.0)),
     (("*", ("QP",), ("C",)), (1.1, 20.0, 13.0, 0.6, 0.8)),
 ]
-KERNEL_NS = (3, 255, 257, 1000, 4096)
+KERNEL_NS = (1, 3, 31, 32, 33, 255, 257, 1000, 4096)
 TIMED_NS = (1000, 4096)
 # one parameter set per stationary leaf the kernels take
 LEAF_CASES = [((tag,), pars) for tag, pars in (
@@ -236,6 +264,132 @@ def _device_ms(torch, fn, reps, name=None):
     return sum(sum(d) / len(d) for d in durations.values()) / 1e3
 
 
+_INSTANCE = re.compile(
+    r"_Z\d+(kernel_matrix_kernel|kernel_matrix_grad_kernel)I([df])Li(\d+)E")
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
+
+
+def _sass_counts(cuobjdump, library, entry):
+    """(all SASS operations, FP64 arithmetic, MUFU) in the SASS of one
+    kernel: a static count, slow paths included."""
+    text = _run([cuobjdump, "-sass", "-fun", entry, str(library)])
+    ops = _SASS_OPCODE.findall(text)
+    fp64 = sum(op.split(".")[0] in ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+               for op in ops)
+    return len(ops), fp64, sum(op.startswith("MUFU") for op in ops)
+
+
+def phase_build(_build, ck):
+    """Builds the library; prints the build time and the resources of the
+    kernel instances the two models run, and fails on a spill or a stack
+    frame that is not the CUDA math library's."""
+    t0 = time.perf_counter()
+    path = _build.build("kernel_matrix")
+    print(f"built {os.path.relpath(path, HERE)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    usage = _build.resource_usage(_build.build_log("kernel_matrix"))
+    names = {code: tag for tag, code in ck.OPCODES.items()}
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("cuobjdump not found: no SASS counts", flush=True)
+    found = 0
+    others = []
+    for entry, use in sorted(usage.items()):
+        m = _INSTANCE.match(entry)
+        if not m or names[int(m[3])] not in MAIN_PATH_LEAVES:
+            if use["stack_frame"] or use["spill_stores"] or \
+                    use["spill_loads"]:
+                others.append(f"{entry[4:].split('EvPK')[0]} "
+                              f"{use['registers']}r/{use['stack_frame']}/"
+                              f"{use['spill_stores']}/{use['spill_loads']}")
+            continue
+        found += 1
+        kernel, dtype, leaf = m[1], {"d": "float64", "f": "float32"}[m[2]], \
+            names[int(m[3])]
+        line = (f"ptxas {kernel}<{dtype}, {leaf}>: {use['registers']} "
+                f"registers, {use['stack_frame']} bytes stack frame, "
+                f"{use['spill_stores']} / {use['spill_loads']} bytes spill "
+                f"stores / loads")
+        if os.path.exists(cuobjdump):
+            total, fp64, mufu = _sass_counts(cuobjdump, path, entry)
+            line += (f"; SASS {total} operations, {fp64} FP64 arithmetic, "
+                     f"{mufu} MUFU (static; a thread computes 4 lags)")
+        print(line, flush=True)
+        allowed = SINF_FRAME_BYTES if (
+            kernel == "kernel_matrix_kernel" and dtype == "float32"
+            and leaf in PERIODIC_LEAVES) else 0
+        if use["spill_stores"] or use["spill_loads"] or \
+                use["stack_frame"] > allowed:
+            raise AssertionError(f"{kernel}<{dtype}, {leaf}> spills or has a "
+                                 f"stack frame over {allowed} bytes: {use}")
+    print(f"ptxas, the other {len(usage) - found} instances: "
+          f"{len(others)} with a stack frame or spills (mangled: Id / If the "
+          f"type, Li<op code>E, n1 the pair, n2 the interpreter; then "
+          f"registers/frame/spill stores/spill loads in bytes): "
+          f"{', '.join(others)}", flush=True)
+    expected = 2 * 2 * len(MAIN_PATH_LEAVES)
+    if found != expected:
+        raise AssertionError(f"the build log names {found} of the "
+                             f"{expected} kernel instances of the main path")
+
+
+def phase_stack(torch, ck, lin):
+    """``kernel_matrix_stack_cuda`` vs its plain version: values (B1's
+    tolerances) and gradients of the headline model's list, one QP and
+    three SE."""
+    structures = [("QP",)] + [("SE",)] * 3
+    pars = [(1.0, 30.0, 20.0, 0.7)] + [(1.0 + 0.05 * k, 30.0)
+                                       for k in range(3)]
+    B = len(structures)
+    for dtype, rtol, atol in ((torch.float64, 1e-12, 1e-14),
+                              (torch.float32, 2e-6, 1e-6)):
+        tol = STACK_GRAD_TOL[_dtype_name(dtype)]
+        worst = 0.0
+        for N in (33, N_MAIN):
+            rng = np.random.default_rng(N)
+            t = torch.tensor(np.sort(rng.uniform(0, 100, N)), dtype=dtype,
+                             device="cuda")
+            G = torch.tensor(rng.standard_normal((B, N, N)), dtype=dtype,
+                             device="cuda")
+            out = {}
+            for name, fn in (("cuda", ck.kernel_matrix_stack_cuda),
+                             ("plain", ck.kernel_matrix_stack_ref)):
+                params = [torch.tensor(q, dtype=dtype, device="cuda",
+                                       requires_grad=True) for q in pars]
+                before = dict(ck.LAUNCHES)
+                K = fn(structures, params, t, lin.TRAIN_NUGGET,
+                       lin.F32_JITTER_MULT)
+                grads = torch.autograd.grad(K, params, grad_outputs=G)
+                torch.cuda.synchronize()
+                launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+                want = B if name == "cuda" else 0
+                if launched != {"kernel_matrix": want,
+                                "kernel_matrix_grad": want}:
+                    raise AssertionError(f"stack ({name}) launched "
+                                         f"{launched}, expected {want} each")
+                out[name] = (K.detach(), grads)
+            (K, g), (R, g_ref) = out["cuda"], out["plain"]
+            if tuple(K.shape) != (B, N, N) or not K.is_contiguous():
+                raise AssertionError(f"stack: shape {tuple(K.shape)}")
+            if not bool(((K - R).abs() <= atol * R.abs().amax()
+                         + rtol * R.abs()).all()):
+                raise AssertionError(
+                    f"stack N={N} {dtype}: values differ by "
+                    f"{float((K - R).abs().max()):.3e}")
+            for a, b in zip(g, g_ref):
+                err = float((a - b).abs().max() / b.abs().max())
+                worst = max(worst, err)
+                if not np.isfinite(err) or err > tol:
+                    raise AssertionError(
+                        f"stack N={N} {dtype}: gradient {a.tolist()} vs "
+                        f"plain {b.tolist()}: {err:.3e} exceeds {tol}")
+        print(f"kernel_matrix_stack {_dtype_name(dtype)}: QP + 3 x SE, "
+              f"N=(33, {N_MAIN}), values agree (max "
+              f"{float((K - R).abs().max()):.3e} at N={N_MAIN}), gradients "
+              f"worst max|Δg|/max|g| = {worst:.3e} (limit {tol}), "
+              f"{B} launches of each kernel per call", flush=True)
+
+
 def phase_kernels(torch, ck, lin):
     """B1 vs its plain version on the card."""
     from gpyrn_tpu_torch.ops import kernels
@@ -269,6 +423,11 @@ def phase_kernels(torch, ck, lin):
                             f"mult={mult}: max abs err "
                             f"{float(err.max()):.3e} exceeds rtol={rtol}, "
                             f"atol={atol_rel}*k(0)")
+                    if not torch.equal(K, K.T):
+                        raise AssertionError(
+                            f"kernel_matrix {structure} N={N} {dtype} "
+                            f"mult={mult}: the output is not equal to its "
+                            f"transpose")
                     worst = max(worst, float(err.max()) / max(k0, 1e-300))
             print(f"kernel_matrix {structure} {str(dtype)[6:]}: "
                   f"N={list(KERNEL_NS)} mult=(4, 0) agree", flush=True)
@@ -276,8 +435,9 @@ def phase_kernels(torch, ck, lin):
     if launched != n_cases:
         raise AssertionError(f"launch counter moved by {launched}, "
                              f"expected {n_cases}")
-    print(f"kernel vs plain: {n_cases} cases agree, worst max-abs-err / "
-          f"k(0) = {worst:.3e}", flush=True)
+    print(f"kernel vs plain: {n_cases} cases agree and equal their "
+          f"transposes exactly, worst max-abs-err / k(0) = {worst:.3e}",
+          flush=True)
 
 
 def time_kernel(torch, ck, lin):
@@ -322,7 +482,7 @@ def time_kernel(torch, ck, lin):
                 item = t.element_size()
                 bound_ms, bound_by = _bound(
                     item * (N + params.shape[0] + 1 + N * N),
-                    OPS_PER_ELEMENT["kernel_matrix"] * N * N, dtype)
+                    OPS_PER_LAG["kernel_matrix"] * N * (N + 1) // 2, dtype)
                 if structure == ("QP",):
                     print(f"bound kernel_matrix QP N={N} "
                           f"{_dtype_name(dtype)}: {bound_ms:.5f} ms "
@@ -380,10 +540,16 @@ def phase_grad_kernel(torch, ck):
                 t, G = _grad_inputs(torch, N, dtype, cache)
                 params = torch.tensor(pars, dtype=dtype, device="cuda")
                 got = ck.kernel_matrix_grad_cuda(structure, params, t, G)
+                again = ck.kernel_matrix_grad_cuda(structure, params, t, G)
                 ref = ck.kernel_matrix_grad_ref(structure, params, t, G)
                 scale = _abs_contraction(torch, structure, params, t, G)
                 torch.cuda.synchronize()
-                n_cases += 1
+                n_cases += 2
+                if not torch.equal(got, again):
+                    raise AssertionError(
+                        f"kernel_matrix_grad {structure} N={N} {dtype}: two "
+                        f"calls on the same input differ: {got.tolist()} "
+                        f"vs {again.tolist()}")
                 share = float(((got - ref).abs() / scale).max())
                 if not bool(torch.isfinite(got).all()) or share > tol:
                     raise AssertionError(
@@ -392,7 +558,8 @@ def phase_grad_kernel(torch, ck):
                         f"(kernel {got.tolist()}, plain {ref.tolist()})")
                 worst = max(worst, share)
         print(f"kernel_matrix_grad {_dtype_name(dtype)}: 18 leaves + "
-              f"{len(KERNEL_CASES)} structures, N={list(GRAD_NS)} agree; "
+              f"{len(KERNEL_CASES)} structures, N={list(GRAD_NS)} agree, "
+              f"and a second call gives the same bits; "
               f"worst max |Δg| / Σ|G ∂k/∂θ| = {worst:.3e} (limit {tol})",
               flush=True)
     launched = ck.LAUNCHES["kernel_matrix_grad"] - before
@@ -433,7 +600,8 @@ def time_grad_kernel(torch, ck):
                 n_par = params.shape[0]
                 bound_ms, bound_by = _bound(
                     item * (N + 2 * n_par + N * N),
-                    OPS_PER_ELEMENT["kernel_matrix_grad"] * N * N, dtype)
+                    OPS_PER_LAG["kernel_matrix_grad"] * N * (N + 1) // 2,
+                    dtype)
                 print(f"time kernel_matrix_grad {structure} N={N} "
                       f"{_dtype_name(dtype)}: device kernels {ms:.5f} ms "
                       f"({dev_a:.5f}/{dev_b:.5f}), plain {plain_ms:.5f} ms "
@@ -737,10 +905,7 @@ def main():
     print(f"card: {smi}", flush=True)
 
     print("== phase 2: build", flush=True)
-    t0 = time.perf_counter()
-    path = _build.build("kernel_matrix")
-    print(f"built {os.path.relpath(path, HERE)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    phase_build(_build, ck)
 
     with open(ORACLE) as f:
         oracle = json.load(f)
@@ -769,12 +934,16 @@ def main():
         raise AssertionError("the fit path never launched kernel_matrix")
 
     print("== phase 8: B1 kernel vs plain version on the card", flush=True)
-    record = phase_kernels(torch, ck, lin)
+    phase_kernels(torch, ck, lin)
     print("== phase 9: B1' (backward) vs plain version on the card",
           flush=True)
     phase_grad_kernel(torch, ck)
 
-    print("== phase 10: a traced gradient call and the kernels' times, in "
+    print("== phase 10: the stacked kernel matrices vs the plain version",
+          flush=True)
+    phase_stack(torch, ck, lin)
+
+    print("== phase 11: a traced gradient call and the kernels' times, in "
           "a fresh process", flush=True)
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             PROFILE_ARG], capture_output=True, text=True)
@@ -798,7 +967,7 @@ def main():
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",
             "replaces": "gpyrn_tpu/ops/pallas_kernels.py:122",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            **rec})
+            "earlier_ms": EARLIER_MS[kname], **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,48 +7,79 @@
 // for one stationary kernel structure, in float or double.
 //
 // B1 replaces gpyrn_tpu/ops/pallas_kernels.py::_build, the tiled Pallas
-// kernel of the JAX package.  Bound by stores: the output is N^2 x 8 bytes
-// in float64 (8 MB at N = 1000, 134 MB at N = 4096), and each element costs
-// a few dozen FP64 operations for its transcendentals (exp, sin, pow).  The
-// design keeps out of device memory the N x N lag matrix and the chain of
-// N^2 temporaries that the plain PyTorch version (one tensor per operation
-// of the formula) writes and reads back: each element is formed in
-// registers from two loads of the time vector and stored once.
+// kernel of the JAX package; B1' is its backward, which the JAX package
+// takes by autodiff through the Pallas kernel.
 //
-// B1' is B1's backward, the dK/dtheta contraction, which the JAX package
-// takes by autodiff through the Pallas kernel.  Bound by its one read of G
-// (the same N^2 bytes) and the FP64 transcendentals.  Each thread walks the
-// program forward for one element, keeping every entry's value, then walks
-// the adjoint G[i, j] back through it into per-thread sums of the
-// parameters' derivatives (hand-derived below, leaf_grad); a block sums its
-// threads in shared memory into one partial row, and a second kernel sums
-// the rows in a fixed order.  No atomics: the result is the same from run
-// to run.  Neither the N x N lag matrix nor any N^2 derivative tensor is
-// formed.
+// What bounds them.  Neither kernel is bound by its bytes (B1 writes N^2
+// values once, B1' reads N^2 once): every element costs an exp, a sin or a
+// pow and a few divisions in IEEE arithmetic (no fast math, no FMA
+// contraction), which in float64 are some hundreds of operations of the
+// FP64 pipe, against 8 bytes of traffic.  The lever is fewer
+// transcendentals, and the design takes half of them away:
+//
+//   * Each lag once.  Every leaf is even in r (it reads |r|, r*r or
+//     (-2r)*r only) and t_i - t_j = -(t_j - t_i) exactly, so K and dk/dp
+//     are symmetric to the bit.  Both kernels walk the 32 x 32 tile pairs
+//     (I, J) with I >= J only.  B1 stores a value at (i, j) and, through a
+//     32 x 33 shared-memory tile, at (j, i), both stores along rows.  B1'
+//     reads G's tile (I, J) and tile (J, I), both along rows, hands the
+//     second across through shared memory, and weighs dk/dp once with
+//     G[i, j] + G[j, i] (G is not symmetric in general).  A diagonal tile
+//     is computed in full.
+//   * One pass per leaf in B1': leaf_vd returns k and all its parameter
+//     derivatives from one exp / sincospi / pow, and the parameter-only
+//     factors are reciprocals taken outside the element loop.
+//   * Sums in registers.  A structure that is a single leaf (every one the
+//     engine's models use) runs a kernel instance compiled for that leaf
+//     (template parameter MODE = its op code): parameters, constants and
+//     the at most 6 sums have compile-time indices, so there is no stack
+//     frame (but for B1's periodic leaves in float, where the math
+//     library's sinf / cosf keep 32 bytes for a large-argument reduction
+//     that these lags never take; B1' uses sincospi, which has none).
+//     Two leaves joined by + or * (MODE_PAIR) run with the op codes
+//     read at run time but the same static arrays.  Any longer program
+//     runs the interpreter (MODE_ANY), whose arrays live in local memory.
+//   * Parameter-only terms of B1 (theta^2, ell^2, 2 ell^2, ...) are formed
+//     once per block into shared memory (leaf_consts), by the operations
+//     the plain version uses, in its order: no bit of K changes.  Divisions
+//     by them stay divisions, for the same reason.
+//   * Persistent blocks in B1': a few blocks per SM (the wrapper's
+//     grad_blocks) stride over the tile pairs in a fixed order and reduce
+//     once at the end: shuffles inside a
+//     warp, one shared-memory step across the warps, one partial row per
+//     block; a second kernel sums the rows in a fixed order.  No atomics:
+//     the result is the same bit for bit from run to run on one card.
+//   * 16-byte accesses: a thread owns 2 (double) or 4 (float) neighbouring
+//     columns and loads or stores them as one double2 / float4 when N is a
+//     multiple of that width and the base pointer is aligned; otherwise the
+//     same thread takes them one by one.  The ragged edge is masked, not
+//     padded.
+//
+// Neither kernel holds a matrix product (nothing for wgmma), and a tile's
+// whole input is two length-32 slices of t (nothing for TMA to fetch).
 //
 // The kernel structure arrives as a postfix program (one op code and one
-// parameter offset per entry; leaves push k(r), ADD / MUL combine the top
-// two, whose entries are also named by index for the backward walk), built
-// by gpyrn_tpu_torch/ops/cuda_kernels.py::encode_program.  The program is
-// the same for every thread, so evaluating it never diverges.  Every
-// formula of B1 repeats the operation order of
-// gpyrn_tpu_torch/ops/kernels.py, and the library is compiled without FMA
-// contraction (-fmad=false), so each operation rounds as the plain version's
-// does and the two agree to the last bits of the math library's exp / sin.
+// parameter offset per entry; leaves push k(r), ADD / MUL combine two
+// earlier entries, named by index), built by
+// gpyrn_tpu_torch/ops/cuda_kernels.py::encode_program.  The program is the
+// same for every thread, so evaluating it never diverges.  Every formula of
+// B1 repeats the operation order of gpyrn_tpu_torch/ops/kernels.py, and the
+// library is compiled without FMA contraction (-fmad=false), so each
+// operation rounds as the plain version's does and the two agree to the
+// last bits of the math library's exp / sin.
 //
-// Tiles (both kernels): a block of 32 x 8 threads covers 32 columns x 32
-// rows; each warp reads or stores 32 neighbouring elements of a row, and
-// each thread walks 4 rows.  The ragged edge is masked, not padded.
-//
-// Without __CUDACC__ only the element math below is compiled (plain C++):
-// the CPU tests build it with the host compiler and hold both kernels'
-// arithmetic against autograd of the plain version.
+// Without __CUDACC__ only the element math and the tile-pair index map
+// below are compiled (plain C++): the CPU tests build them with the host
+// compiler and hold both kernels' arithmetic against autograd of the plain
+// version.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+#include <stdint.h>
 #else
 #include <cmath>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #endif
 #include <stddef.h>
@@ -77,22 +108,38 @@ enum Op : int {
   OP_CP = 18,
   OP_QCP = 19,
 };
+#define N_OPCODES 20
+
+// X(op) for every leaf op code: the single-leaf instances of both kernels.
+#define FOR_EACH_LEAF(X)                                                  \
+  X(OP_C) X(OP_SE) X(OP_P) X(OP_QP) X(OP_RQ) X(OP_RQP) X(OP_COS)          \
+  X(OP_EXP) X(OP_M32) X(OP_M52) X(OP_GammaExp) X(OP_PW) X(OP_PAC)         \
+  X(OP_NP) X(OP_QNP) X(OP_NRQP) X(OP_CP) X(OP_QCP)
+
+// How a kernel instance reads its program (template parameter MODE): a leaf
+// op code (>= OP_C) for a program that is that one leaf, or one of these.
+#define MODE_PAIR (-1)  // leaf, leaf, ADD or MUL: op codes read at run time
+#define MODE_ANY (-2)   // any program: the interpreter
 
 // Limits.  Must equal MAX_OPS / MAX_STACK / MAX_PARAMS in cuda_kernels.py.
 #define MAX_OPS 32
 #define MAX_STACK 8
 #define MAX_PARAMS 64
+#define LEAF_PARAMS 6  // the most parameters of one leaf (NRQP)
+#define N_CONSTS 6     // parameter-only terms kept per leaf (leaf_consts)
 
-#define TILE_X 32   // columns per block (one warp: coalesced stores along j)
-#define TILE_Y 32   // rows per block
-#define BLOCK_Y 8   // thread rows per block; each thread covers TILE_Y / BLOCK_Y rows
-
-// Constants as the plain version spells them (Python's math.pi,
-// math.sqrt(3.0), math.sqrt(5.0), 2 * math.pi, 3 * math.sqrt(5.0)),
-// rounded to the working type where they are used.
-#define K_PI 3.14159265358979323846
-#define K_SQRT3 1.73205080756887729353
-#define K_SQRT5 2.23606797749978969641
+// Tiles (both kernels): a block of THREADS threads covers TILE x TILE
+// elements; a thread owns 16 bytes of neighbouring columns in each of its
+// rows.  TILE must equal TILE in cuda_kernels.py, which sizes both grids.
+#define TILE 32
+#define THREADS 256
+#define WARPS (THREADS / 32)
+// B1': the blocks per SM that a kernel instance's registers must allow.  A
+// leaf whose derivatives fit 64 registers a thread runs 4 blocks per SM;
+// the four periodic (1 + w)^-alpha leaves, the pair and the interpreter
+// would spill there and get 128.
+#define GRAD_MIN_BLOCKS_LIGHT 4
+#define GRAD_MIN_BLOCKS_HEAVY 2
 
 struct Program {
   int n_ops;
@@ -101,6 +148,13 @@ struct Program {
   int lhs[MAX_OPS];  // the two entries an ADD / MUL combines (-1 at a leaf)
   int rhs[MAX_OPS];
 };
+
+// Constants as the plain version spells them (Python's math.pi,
+// math.sqrt(3.0), math.sqrt(5.0), 2 * math.pi, 3 * math.sqrt(5.0)),
+// rounded to the working type where they are used.
+#define K_PI 3.14159265358979323846
+#define K_SQRT3 1.73205080756887729353
+#define K_SQRT5 2.23606797749978969641
 
 __device__ __forceinline__ float m_exp(float x) { return expf(x); }
 __device__ __forceinline__ double m_exp(double x) { return exp(x); }
@@ -118,104 +172,210 @@ __device__ __forceinline__ float m_log(float x) { return logf(x); }
 __device__ __forceinline__ double m_log(double x) { return log(x); }
 __device__ __forceinline__ float m_log1p(float x) { return log1pf(x); }
 __device__ __forceinline__ double m_log1p(double x) { return log1p(x); }
+// sin(pi u) and cos(pi u): the reduction of u modulo 2 is exact, so the
+// card's sincospi has no slow path for large arguments (and so no stack
+// frame), unlike sin(pi * u).  B1' uses it; B1 must round as the plain
+// version does and keeps sin / cos of the rounded product.
+__device__ __forceinline__ void m_sincospi(float u, float* s, float* c) {
+#ifdef __CUDACC__
+  sincospif(u, s, c);
+#else
+  *s = sinf(float(K_PI) * u);
+  *c = cosf(float(K_PI) * u);
+#endif
+}
+__device__ __forceinline__ void m_sincospi(double u, double* s, double* c) {
+#ifdef __CUDACC__
+  sincospi(u, s, c);
+#else
+  *s = sin(K_PI * u);
+  *c = cos(K_PI * u);
+#endif
+}
 
-// One leaf kernel at lag r; p points at its parameters.  Each case follows
-// the matching function of gpyrn_tpu_torch/ops/kernels.py term by term.
+__host__ __device__ __forceinline__ constexpr bool is_leaf_op(int op) {
+  return op >= OP_C && op < N_OPCODES;
+}
+
+// The number of parameters a leaf reads.
+__host__ __device__ __forceinline__ constexpr int leaf_n_params(int op) {
+  return (op == OP_C || op == OP_PW) ? 1
+         : (op == OP_SE || op == OP_COS || op == OP_EXP || op == OP_M32 ||
+            op == OP_M52) ? 2
+         : (op == OP_P || op == OP_RQ || op == OP_GammaExp || op == OP_PAC ||
+            op == OP_CP) ? 3
+         : (op == OP_QP || op == OP_NP || op == OP_QCP) ? 4
+         : (op == OP_RQP || op == OP_QNP) ? 5
+         : (op == OP_NRQP) ? 6 : 0;
+}
+
+// The parameter-only terms of one leaf's formula, c[0 .. N_CONSTS): each is
+// the sub-expression the plain version forms, by the same operations in the
+// same order, so leaf() below rounds as before.
 template <typename T>
-__device__ __forceinline__ T leaf(int op, const T* p, T r) {
+__device__ __forceinline__ void leaf_consts(int op, const T* p, T* c) {
+#pragma unroll
+  for (int m = 0; m < N_CONSTS; ++m) c[m] = T(0);
+  switch (op) {
+    case OP_C:
+    case OP_COS:
+    case OP_EXP:
+    case OP_M32:
+    case OP_GammaExp:
+      c[0] = p[0] * p[0];
+      return;
+    case OP_SE:  // theta, ell
+      c[0] = p[0] * p[0];
+      c[1] = p[1] * p[1];
+      return;
+    case OP_P:   // theta, P, ell
+    case OP_CP:  // amplitude, P, ell
+      c[0] = p[0] * p[0];
+      c[1] = p[2] * p[2];
+      return;
+    case OP_QP:   // theta, ell_e, P, ell_p
+    case OP_QCP:  // amplitude, ell_e, P, ell_p
+      c[0] = p[0] * p[0];
+      c[1] = p[3] * p[3];
+      c[2] = T(2) * (p[1] * p[1]);
+      return;
+    case OP_RQ:  // theta, alpha, ell
+      c[0] = p[0] * p[0];
+      c[1] = p[1] * (p[2] * p[2]);
+      c[2] = -p[1];
+      return;
+    case OP_RQP:  // theta, alpha, ell_e, P, ell_p
+      c[0] = p[0] * p[0];
+      c[1] = p[4] * p[4];
+      c[2] = (T(2) * p[1]) * (p[2] * p[2]);
+      c[3] = -p[1];
+      return;
+    case OP_M52:  // theta, ell
+      c[0] = p[0] * p[0];
+      c[1] = T(3.0 * K_SQRT5) * p[1];
+      c[2] = T(3) * (p[1] * p[1]);
+      return;
+    case OP_PW:  // eta
+      c[0] = T(0.5) * p[0];
+      return;
+    case OP_PAC: {  // amplitude, ell_1, ell_2
+      const T den = p[1] * p[1] + p[2] * p[2];
+      const T a = m_sqrt(((T(2) * p[1]) * p[2]) / den);
+      c[0] = (p[0] * p[0]) * a;
+      c[1] = den;
+      return;
+    }
+    case OP_NP:  // amplitude, alpha2, P, ell
+      c[0] = p[0] * p[0];
+      c[1] = p[1] * (p[3] * p[3]);
+      c[2] = -p[1];
+      return;
+    case OP_QNP:  // amplitude, alpha2, ell_e, P, ell_p
+      c[0] = p[0] * p[0];
+      c[1] = p[1] * (p[4] * p[4]);
+      c[2] = -p[1];
+      c[3] = p[2] * p[2];
+      return;
+    case OP_NRQP:  // amplitude, alpha1, alpha2, ell_e, P, ell_p
+      c[0] = p[0] * p[0];
+      c[1] = p[2] * (p[5] * p[5]);
+      c[2] = -p[2];
+      c[3] = p[1] * (p[3] * p[3]);
+      c[4] = -p[1];
+      return;
+  }
+}
+
+// One leaf kernel at lag r; p points at its parameters, c at its
+// leaf_consts.  Each case follows the matching function of
+// gpyrn_tpu_torch/ops/kernels.py term by term.
+template <typename T>
+__device__ __forceinline__ T leaf(int op, const T* p, const T* c, T r) {
   const T pi = T(K_PI);
   const T ar = m_abs(r);
   switch (op) {
     case OP_C:  // c^2
-      return p[0] * p[0];
-    case OP_SE: {  // theta^2 exp(-r^2 / 2 ell^2)
-      return (p[0] * p[0]) * m_exp((T(-0.5) * (r * r)) / (p[1] * p[1]));
-    }
+      return c[0];
+    case OP_SE:  // theta^2 exp(-r^2 / 2 ell^2)
+      return c[0] * m_exp((T(-0.5) * (r * r)) / c[1]);
     case OP_P: {  // theta^2 exp(-2 sin^2(pi |r| / P) / ell^2)
       const T s = m_sin((pi * ar) / p[1]);
-      return (p[0] * p[0]) * m_exp((T(-2) * (s * s)) / (p[2] * p[2]));
+      return c[0] * m_exp((T(-2) * (s * s)) / c[1]);
     }
     case OP_QP: {  // theta, ell_e, P, ell_p
       const T s = m_sin((pi * ar) / p[2]);
-      const T term1 = (T(-2) * (s * s)) / (p[3] * p[3]);
-      const T term2 = (r * r) / (T(2) * (p[1] * p[1]));
-      return (p[0] * p[0]) * m_exp(term1 - term2);
+      const T term1 = (T(-2) * (s * s)) / c[1];
+      const T term2 = (r * r) / c[2];
+      return c[0] * m_exp(term1 - term2);
     }
     case OP_RQ: {  // theta, alpha, ell
-      const T b = T(1) + (T(0.5) * (r * r)) / (p[1] * (p[2] * p[2]));
-      return (p[0] * p[0]) * m_pow(b, -p[1]);
+      const T b = T(1) + (T(0.5) * (r * r)) / c[1];
+      return c[0] * m_pow(b, c[2]);
     }
     case OP_RQP: {  // theta, alpha, ell_e, P, ell_p
       const T s = m_sin((pi * ar) / p[3]);
-      const T e = m_exp((T(-2) * (s * s)) / (p[4] * p[4]));
-      const T b = T(1) + (r * r) / ((T(2) * p[1]) * (p[2] * p[2]));
-      return ((p[0] * p[0]) * e) * m_pow(b, -p[1]);
+      const T e = m_exp((T(-2) * (s * s)) / c[1]);
+      const T b = T(1) + (r * r) / c[2];
+      return (c[0] * e) * m_pow(b, c[3]);
     }
     case OP_COS:  // theta^2 cos(2 pi |r| / P)
-      return (p[0] * p[0]) * m_cos((T(2.0 * K_PI) * ar) / p[1]);
+      return c[0] * m_cos((T(2.0 * K_PI) * ar) / p[1]);
     case OP_EXP:  // theta^2 exp(-|r| / ell)
-      return (p[0] * p[0]) * m_exp((-ar) / p[1]);
+      return c[0] * m_exp((-ar) / p[1]);
     case OP_M32: {  // theta, ell
       const T s = (T(K_SQRT3) * ar) / p[1];
-      return ((p[0] * p[0]) * (T(1) + s)) * m_exp(-s);
+      return (c[0] * (T(1) + s)) * m_exp(-s);
     }
     case OP_M52: {  // theta, ell
-      const T num = ((T(3.0 * K_SQRT5) * p[1]) * ar) + T(5) * (ar * ar);
-      const T poly = T(1) + num / (T(3) * (p[1] * p[1]));
-      return ((p[0] * p[0]) * poly) * m_exp((T(-K_SQRT5) * ar) / p[1]);
+      const T num = (c[1] * ar) + T(5) * (ar * ar);
+      const T poly = T(1) + num / c[2];
+      return (c[0] * poly) * m_exp((T(-K_SQRT5) * ar) / p[1]);
     }
     case OP_GammaExp:  // theta, gamma, l
-      return (p[0] * p[0]) * m_exp(-m_pow(ar / p[2], p[1]));
+      return c[0] * m_exp(-m_pow(ar / p[2], p[1]));
     case OP_PW: {  // eta
-      const T a = m_abs(r / (T(0.5) * p[0]));
+      const T a = m_abs(r / c[0]);
       const T u = T(1) - a;
       const T pw = (T(3) * a + T(1)) * ((u * u) * u);
       return a > T(1) ? T(0) : pw;
     }
-    case OP_PAC: {  // amplitude, ell_1, ell_2
-      const T den = p[1] * p[1] + p[2] * p[2];
-      const T a = m_sqrt(((T(2) * p[1]) * p[2]) / den);
-      const T b = m_exp(((T(-2) * r) * r) / den);
-      return ((p[0] * p[0]) * a) * b;
-    }
+    case OP_PAC:  // amplitude, ell_1, ell_2
+      return c[0] * m_exp(((T(-2) * r) * r) / c[1]);
     case OP_NP: {  // amplitude, alpha2, P, ell
       const T s = m_sin((pi * ar) / p[2]);
-      const T a = m_pow(T(1) + (T(2) * (s * s)) / (p[1] * (p[3] * p[3])),
-                        -p[1]);
-      return (p[0] * p[0]) * a;
+      return c[0] * m_pow(T(1) + (T(2) * (s * s)) / c[1], c[2]);
     }
     case OP_QNP: {  // amplitude, alpha2, ell_e, P, ell_p
       const T s = m_sin((pi * ar) / p[3]);
-      const T a = m_pow(T(1) + (T(2) * (s * s)) / (p[1] * (p[4] * p[4])),
-                        -p[1]);
-      const T b = m_exp((T(-0.5) * (r * r)) / (p[2] * p[2]));
-      return ((p[0] * p[0]) * a) * b;
+      const T a = m_pow(T(1) + (T(2) * (s * s)) / c[1], c[2]);
+      const T b = m_exp((T(-0.5) * (r * r)) / c[3]);
+      return (c[0] * a) * b;
     }
     case OP_NRQP: {  // amplitude, alpha1, alpha2, ell_e, P, ell_p
       const T s = m_sin((pi * ar) / p[4]);
-      const T a = m_pow(T(1) + (T(2) * (s * s)) / (p[2] * (p[5] * p[5])),
-                        -p[2]);
-      const T b = m_pow(T(1) + (T(0.5) * (r * r)) / (p[1] * (p[3] * p[3])),
-                        -p[1]);
-      return ((p[0] * p[0]) * a) * b;
+      const T a = m_pow(T(1) + (T(2) * (s * s)) / c[1], c[2]);
+      const T b = m_pow(T(1) + (T(0.5) * (r * r)) / c[3], c[4]);
+      return (c[0] * a) * b;
     }
     case OP_CP: {  // amplitude, P, ell
-      const T c = m_cos((pi * ar) / p[1]);
-      return (p[0] * p[0]) * m_exp((T(-2) * (c * c)) / (p[2] * p[2]));
+      const T co = m_cos((pi * ar) / p[1]);
+      return c[0] * m_exp((T(-2) * (co * co)) / c[1]);
     }
     case OP_QCP: {  // amplitude, ell_e, P, ell_p
-      const T c = m_cos((pi * ar) / p[2]);
-      const T term1 = (T(-2) * (c * c)) / (p[3] * p[3]);
-      const T term2 = (r * r) / (T(2) * (p[1] * p[1]));
-      return (p[0] * p[0]) * m_exp(term1 - term2);
+      const T co = m_cos((pi * ar) / p[2]);
+      const T term1 = (T(-2) * (co * co)) / c[1];
+      const T term2 = (r * r) / c[2];
+      return c[0] * m_exp(term1 - term2);
     }
   }
   return T(0);
 }
 
+// The interpreter of B1: par holds the program's parameters, cst the
+// leaf_consts of entry k at cst + k * N_CONSTS.
 template <typename T>
-__device__ __forceinline__ T eval_program(const Program& prog, const T* p,
-                                          T r) {
+__device__ __forceinline__ T eval_program(const Program& prog, const T* par,
+                                          const T* cst, T r) {
   T stack[MAX_STACK];
   int top = 0;
   for (int k = 0; k < prog.n_ops; ++k) {
@@ -227,234 +387,295 @@ __device__ __forceinline__ T eval_program(const Program& prog, const T* p,
       --top;
       stack[top - 1] = stack[top - 1] * stack[top];
     } else {
-      stack[top++] = leaf<T>(op, p + prog.off[k], r);
+      stack[top++] = leaf<T>(op, par + prog.off[k], cst + k * N_CONSTS, r);
     }
   }
   return stack[0];
 }
 
-// d k(r) / d p[m] of one leaf, times the adjoint, added into acc[m] for the
-// leaf's own parameters.  Derived by hand from the formulas above.  Where a
-// derivative carries |r| (or a power of x = |r| / l) as a factor it is 0 on
-// the diagonal r = 0, as autograd of the plain version gives it; GammaExp's
-// d/dgamma of x^gamma = x^gamma log x is taken as 0 at x = 0 (no 0 * -inf),
-// and its d/dl is written as gamma x^gamma / l, finite at x = 0.  PW passes
-// nothing outside its support |r| > eta / 2.  (1 + w)^-alpha takes its
-// d/dalpha as (w / (1 + w) - log1p(w)) (1 + w)^-alpha.
+// k(r) of a program, as the kernel instance of MODE reads it: a single leaf
+// and a pair take their parameters and constants from p0 / c0 (and p1 / c1),
+// which the caller indexes only at compile time; any other program runs
+// the interpreter on par / cst.
+template <typename T, int MODE>
+__device__ __forceinline__ T program_value(const Program& prog, const T* p0,
+                                           const T* c0, const T* p1,
+                                           const T* c1, const T* par,
+                                           const T* cst, T r) {
+  if constexpr (MODE >= OP_C) {
+    return leaf<T>(MODE, p0, c0, r);
+  } else if constexpr (MODE == MODE_PAIR) {
+    const T k0 = leaf<T>(prog.op[0], p0, c0, r);
+    const T k1 = leaf<T>(prog.op[1], p1, c1, r);
+    return prog.op[2] == OP_ADD ? k0 + k1 : k0 * k1;
+  } else {
+    return eval_program<T>(prog, par, cst, r);
+  }
+}
+
+// One leaf's value and derivatives in one pass: returns k(r) and writes
+// d[m] = d k(r) / d p[m] for the leaf's own parameters, from one exp /
+// sincospi / pow.  Derived by hand from the formulas above; divisions by
+// parameter-only terms are products with reciprocals that do not depend on
+// r, so a caller that keeps p in registers pays for them once, outside its
+// element loop.  Where a derivative carries |r| (or a power of x = |r| / l)
+// as a factor it is 0 on the diagonal r = 0, as autograd of the plain
+// version gives it; GammaExp's d/dgamma of x^gamma = x^gamma log x is taken
+// as 0 at x = 0 (no 0 * -inf), and its d/dl is written as gamma x^gamma / l,
+// finite at x = 0.  PW passes nothing outside its support |r| > eta / 2.
+// (1 + w)^-alpha takes its d/dalpha as (w / (1 + w) - log1p(w)) (1 + w)^-alpha.
+// Every case is even in r.
 template <typename T>
-__device__ __forceinline__ void leaf_grad(int op, const T* p, T r, T adj,
-                                          T* acc) {
+__device__ __forceinline__ T leaf_vd(int op, const T* p, T r, T* d) {
   const T pi = T(K_PI);
   const T ar = m_abs(r);
   const T r2 = r * r;
   switch (op) {
     case OP_C:
-      acc[0] += adj * (T(2) * p[0]);
-      return;
+      d[0] = T(2) * p[0];
+      return p[0] * p[0];
     case OP_SE: {  // theta, ell
-      const T e = m_exp((T(-0.5) * r2) / (p[1] * p[1]));
-      acc[0] += adj * ((T(2) * p[0]) * e);
-      acc[1] += adj * (((p[0] * p[0]) * e) * (r2 / ((p[1] * p[1]) * p[1])));
-      return;
+      const T l2 = p[1] * p[1];
+      const T e = m_exp((T(-0.5) * r2) * (T(1) / l2));
+      const T k = (p[0] * p[0]) * e;
+      d[0] = (T(2) * p[0]) * e;
+      d[1] = k * (r2 * (T(1) / (l2 * p[1])));
+      return k;
     }
     case OP_P: {  // theta, P, ell
-      const T x = (pi * ar) / p[1];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[1]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T l2 = p[2] * p[2];
-      const T e = m_exp((T(-2) * (s * s)) / l2);
+      const T e = m_exp((T(-2) * (s * s)) * (T(1) / l2));
       const T k = (p[0] * p[0]) * e;
-      acc[0] += adj * ((T(2) * p[0]) * e);
-      acc[1] += adj * (k * (((T(4) * s) * c) * x) / (l2 * p[1]));
-      acc[2] += adj * (k * (T(4) * (s * s)) / (l2 * p[2]));
-      return;
+      d[0] = (T(2) * p[0]) * e;
+      d[1] = (k * (((T(4) * s) * c) * x)) * (T(1) / (l2 * p[1]));
+      d[2] = (k * (T(4) * (s * s))) * (T(1) / (l2 * p[2]));
+      return k;
     }
     case OP_QP: {  // theta, ell_e, P, ell_p
-      const T x = (pi * ar) / p[2];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[2]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T lp2 = p[3] * p[3];
-      const T e = m_exp((T(-2) * (s * s)) / lp2 - r2 / (T(2) * (p[1] * p[1])));
+      const T le2 = p[1] * p[1];
+      const T e = m_exp((T(-2) * (s * s)) * (T(1) / lp2) -
+                        r2 * (T(1) / (T(2) * le2)));
       const T k = (p[0] * p[0]) * e;
-      acc[0] += adj * ((T(2) * p[0]) * e);
-      acc[1] += adj * (k * (r2 / ((p[1] * p[1]) * p[1])));
-      acc[2] += adj * (k * (((T(4) * s) * c) * x) / (lp2 * p[2]));
-      acc[3] += adj * (k * (T(4) * (s * s)) / (lp2 * p[3]));
-      return;
+      d[0] = (T(2) * p[0]) * e;
+      d[1] = k * (r2 * (T(1) / (le2 * p[1])));
+      d[2] = (k * (((T(4) * s) * c) * x)) * (T(1) / (lp2 * p[2]));
+      d[3] = (k * (T(4) * (s * s))) * (T(1) / (lp2 * p[3]));
+      return k;
     }
     case OP_RQ: {  // theta, alpha, ell
-      const T w = (T(0.5) * r2) / (p[1] * (p[2] * p[2]));
+      const T w = (T(0.5) * r2) * (T(1) / (p[1] * (p[2] * p[2])));
       const T b = T(1) + w;
+      const T ib = T(1) / b;
       const T a = m_pow(b, -p[1]);
       const T k = (p[0] * p[0]) * a;
-      acc[0] += adj * ((T(2) * p[0]) * a);
-      acc[1] += adj * (k * (w / b - m_log1p(w)));
-      acc[2] += adj * (k * ((T(2) * p[1]) * w) / (b * p[2]));
-      return;
+      d[0] = (T(2) * p[0]) * a;
+      d[1] = k * (w * ib - m_log1p(w));
+      d[2] = (k * (((T(2) * p[1]) * (T(1) / p[2])) * w)) * ib;
+      return k;
     }
     case OP_RQP: {  // theta, alpha, ell_e, P, ell_p
-      const T x = (pi * ar) / p[3];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[3]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T lp2 = p[4] * p[4];
-      const T e = m_exp((T(-2) * (s * s)) / lp2);
-      const T w = r2 / ((T(2) * p[1]) * (p[2] * p[2]));
+      const T e = m_exp((T(-2) * (s * s)) * (T(1) / lp2));
+      const T w = r2 * (T(1) / ((T(2) * p[1]) * (p[2] * p[2])));
       const T b = T(1) + w;
+      const T ib = T(1) / b;
       const T a = m_pow(b, -p[1]);
       const T k = ((p[0] * p[0]) * e) * a;
-      acc[0] += adj * (((T(2) * p[0]) * e) * a);
-      acc[1] += adj * (k * (w / b - m_log1p(w)));
-      acc[2] += adj * (k * ((T(2) * p[1]) * w) / (b * p[2]));
-      acc[3] += adj * (k * (((T(4) * s) * c) * x) / (lp2 * p[3]));
-      acc[4] += adj * (k * (T(4) * (s * s)) / (lp2 * p[4]));
-      return;
+      d[0] = ((T(2) * p[0]) * e) * a;
+      d[1] = k * (w * ib - m_log1p(w));
+      d[2] = (k * (((T(2) * p[1]) * (T(1) / p[2])) * w)) * ib;
+      d[3] = (k * (((T(4) * s) * c) * x)) * (T(1) / (lp2 * p[3]));
+      d[4] = (k * (T(4) * (s * s))) * (T(1) / (lp2 * p[4]));
+      return k;
     }
     case OP_COS: {  // theta, P
-      const T x = (T(2.0 * K_PI) * ar) / p[1];
-      acc[0] += adj * ((T(2) * p[0]) * m_cos(x));
-      acc[1] += adj * (((p[0] * p[0]) * m_sin(x)) * x / p[1]);
-      return;
+      const T ip = T(1) / p[1];
+      const T u = (T(2) * ar) * ip;
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
+      d[0] = (T(2) * p[0]) * c;
+      d[1] = (((p[0] * p[0]) * s) * x) * ip;
+      return (p[0] * p[0]) * c;
     }
     case OP_EXP: {  // theta, ell
-      const T e = m_exp((-ar) / p[1]);
-      acc[0] += adj * ((T(2) * p[0]) * e);
-      acc[1] += adj * (((p[0] * p[0]) * e) * ar / (p[1] * p[1]));
-      return;
+      const T il = T(1) / p[1];
+      const T e = m_exp((-ar) * il);
+      const T k = (p[0] * p[0]) * e;
+      d[0] = (T(2) * p[0]) * e;
+      d[1] = (k * ar) * (il * il);
+      return k;
     }
     case OP_M32: {  // theta, ell
-      const T s = (T(K_SQRT3) * ar) / p[1];
+      const T il = T(1) / p[1];
+      const T s = (T(K_SQRT3) * ar) * il;
       const T e = m_exp(-s);
-      acc[0] += adj * (((T(2) * p[0]) * (T(1) + s)) * e);
-      acc[1] += adj * (((p[0] * p[0]) * e) * (s * s) / p[1]);
-      return;
+      d[0] = ((T(2) * p[0]) * (T(1) + s)) * e;
+      d[1] = (((p[0] * p[0]) * e) * (s * s)) * il;
+      return ((p[0] * p[0]) * (T(1) + s)) * e;
     }
     case OP_M52: {  // theta, ell
-      const T s = (T(K_SQRT5) * ar) / p[1];
+      const T il = T(1) / p[1];
+      const T s = (T(K_SQRT5) * ar) * il;
       const T e = m_exp(-s);
-      const T poly = T(1) + s + (s * s) / T(3);
-      acc[0] += adj * (((T(2) * p[0]) * poly) * e);
-      acc[1] += adj * (((p[0] * p[0]) * e) * ((s * s) * (T(1) + s)) /
-                       (T(3) * p[1]));
-      return;
+      const T poly = T(1) + s + (s * s) * T(1.0 / 3.0);
+      d[0] = ((T(2) * p[0]) * poly) * e;
+      d[1] = (((p[0] * p[0]) * e) * ((s * s) * (T(1) + s))) *
+             (il * T(1.0 / 3.0));
+      return ((p[0] * p[0]) * poly) * e;
     }
     case OP_GammaExp: {  // theta, gamma, l
-      const T x = ar / p[2];
+      const T il = T(1) / p[2];
+      const T x = ar * il;
       const T z = m_pow(x, p[1]);
       const T e = m_exp(-z);
       const T k = (p[0] * p[0]) * e;
-      acc[0] += adj * ((T(2) * p[0]) * e);
-      if (x > T(0)) acc[1] -= adj * ((k * z) * m_log(x));
-      acc[2] += adj * ((k * p[1]) * z / p[2]);
-      return;
+      d[0] = (T(2) * p[0]) * e;
+      d[1] = x > T(0) ? -((k * z) * m_log(x)) : T(0);
+      d[2] = ((k * p[1]) * z) * il;
+      return k;
     }
     case OP_PW: {  // eta
-      const T a = m_abs(r / (T(0.5) * p[0]));
-      if (a > T(1)) return;
+      const T a = m_abs(r * (T(1) / (T(0.5) * p[0])));
       const T u = T(1) - a;
-      acc[0] += adj * ((T(12) * (a * a)) * (u * u) / p[0]);
-      return;
+      const bool in = !(a > T(1));
+      d[0] = in ? ((T(12) * (a * a)) * (u * u)) * (T(1) / p[0]) : T(0);
+      return in ? (T(3) * a + T(1)) * ((u * u) * u) : T(0);
     }
     case OP_PAC: {  // amplitude, ell_1, ell_2
       const T l1 = p[1], l2 = p[2];
       const T den = l1 * l1 + l2 * l2;
-      const T den2 = den * den;
-      const T a = m_sqrt(((T(2) * l1) * l2) / den);
-      const T b = m_exp(((T(-2) * r) * r) / den);
+      const T iden = T(1) / den;
+      const T iden2 = iden * iden;
+      const T a = m_sqrt(((T(2) * l1) * l2) * iden);
+      const T b = m_exp(((T(-2) * r) * r) * iden);
       const T amp2 = p[0] * p[0];
-      const T da1 = (l2 * (l2 * l2 - l1 * l1)) / (den2 * a);
-      const T da2 = (l1 * (l1 * l1 - l2 * l2)) / (den2 * a);
-      const T db1 = b * ((T(4) * r2) * l1) / den2;
-      const T db2 = b * ((T(4) * r2) * l2) / den2;
-      acc[0] += adj * (((T(2) * p[0]) * a) * b);
-      acc[1] += adj * (amp2 * (da1 * b + a * db1));
-      acc[2] += adj * (amp2 * (da2 * b + a * db2));
-      return;
+      const T da1 = ((l2 * (l2 * l2 - l1 * l1)) * iden2) / a;
+      const T da2 = ((l1 * (l1 * l1 - l2 * l2)) * iden2) / a;
+      const T db = (b * (T(4) * r2)) * iden2;
+      d[0] = ((T(2) * p[0]) * a) * b;
+      d[1] = amp2 * (da1 * b + a * (db * l1));
+      d[2] = amp2 * (da2 * b + a * (db * l2));
+      return (amp2 * a) * b;
     }
     case OP_NP: {  // amplitude, alpha2, P, ell
-      const T x = (pi * ar) / p[2];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[2]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T l2 = p[3] * p[3];
-      const T w = (T(2) * (s * s)) / (p[1] * l2);
+      const T w = (T(2) * (s * s)) * (T(1) / (p[1] * l2));
       const T b = T(1) + w;
+      const T ib = T(1) / b;
       const T a = m_pow(b, -p[1]);
       const T k = (p[0] * p[0]) * a;
-      acc[0] += adj * ((T(2) * p[0]) * a);
-      acc[1] += adj * (k * (w / b - m_log1p(w)));
-      acc[2] += adj * (k * (((T(4) * s) * c) * x) / ((l2 * p[2]) * b));
-      acc[3] += adj * (k * ((T(2) * p[1]) * w) / (b * p[3]));
-      return;
+      d[0] = (T(2) * p[0]) * a;
+      d[1] = k * (w * ib - m_log1p(w));
+      d[2] = ((k * (((T(4) * s) * c) * x)) * (T(1) / (l2 * p[2]))) * ib;
+      d[3] = (k * (((T(2) * p[1]) * (T(1) / p[3])) * w)) * ib;
+      return k;
     }
     case OP_QNP: {  // amplitude, alpha2, ell_e, P, ell_p
-      const T x = (pi * ar) / p[3];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[3]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T lp2 = p[4] * p[4];
-      const T w = (T(2) * (s * s)) / (p[1] * lp2);
+      const T le2 = p[2] * p[2];
+      const T w = (T(2) * (s * s)) * (T(1) / (p[1] * lp2));
       const T b = T(1) + w;
+      const T ib = T(1) / b;
       const T a = m_pow(b, -p[1]);
-      const T e = m_exp((T(-0.5) * r2) / (p[2] * p[2]));
+      const T e = m_exp((T(-0.5) * r2) * (T(1) / le2));
       const T k = ((p[0] * p[0]) * a) * e;
-      acc[0] += adj * (((T(2) * p[0]) * a) * e);
-      acc[1] += adj * (k * (w / b - m_log1p(w)));
-      acc[2] += adj * (k * (r2 / ((p[2] * p[2]) * p[2])));
-      acc[3] += adj * (k * (((T(4) * s) * c) * x) / ((lp2 * p[3]) * b));
-      acc[4] += adj * (k * ((T(2) * p[1]) * w) / (b * p[4]));
-      return;
+      d[0] = ((T(2) * p[0]) * a) * e;
+      d[1] = k * (w * ib - m_log1p(w));
+      d[2] = k * (r2 * (T(1) / (le2 * p[2])));
+      d[3] = ((k * (((T(4) * s) * c) * x)) * (T(1) / (lp2 * p[3]))) * ib;
+      d[4] = (k * (((T(2) * p[1]) * (T(1) / p[4])) * w)) * ib;
+      return k;
     }
     case OP_NRQP: {  // amplitude, alpha1, alpha2, ell_e, P, ell_p
-      const T x = (pi * ar) / p[4];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[4]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T lp2 = p[5] * p[5];
-      const T w2 = (T(2) * (s * s)) / (p[2] * lp2);
+      const T w2 = (T(2) * (s * s)) * (T(1) / (p[2] * lp2));
       const T b2 = T(1) + w2;
+      const T ib2 = T(1) / b2;
       const T a = m_pow(b2, -p[2]);
-      const T w1 = (T(0.5) * r2) / (p[1] * (p[3] * p[3]));
+      const T w1 = (T(0.5) * r2) * (T(1) / (p[1] * (p[3] * p[3])));
       const T b1 = T(1) + w1;
+      const T ib1 = T(1) / b1;
       const T b = m_pow(b1, -p[1]);
       const T k = ((p[0] * p[0]) * a) * b;
-      acc[0] += adj * (((T(2) * p[0]) * a) * b);
-      acc[1] += adj * (k * (w1 / b1 - m_log1p(w1)));
-      acc[2] += adj * (k * (w2 / b2 - m_log1p(w2)));
-      acc[3] += adj * (k * ((T(2) * p[1]) * w1) / (b1 * p[3]));
-      acc[4] += adj * (k * (((T(4) * s) * c) * x) / ((lp2 * p[4]) * b2));
-      acc[5] += adj * (k * ((T(2) * p[2]) * w2) / (b2 * p[5]));
-      return;
+      d[0] = ((T(2) * p[0]) * a) * b;
+      d[1] = k * (w1 * ib1 - m_log1p(w1));
+      d[2] = k * (w2 * ib2 - m_log1p(w2));
+      d[3] = (k * (((T(2) * p[1]) * (T(1) / p[3])) * w1)) * ib1;
+      d[4] = ((k * (((T(4) * s) * c) * x)) * (T(1) / (lp2 * p[4]))) * ib2;
+      d[5] = (k * (((T(2) * p[2]) * (T(1) / p[5])) * w2)) * ib2;
+      return k;
     }
     case OP_CP: {  // amplitude, P, ell
-      const T x = (pi * ar) / p[1];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[1]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T l2 = p[2] * p[2];
-      const T e = m_exp((T(-2) * (c * c)) / l2);
+      const T e = m_exp((T(-2) * (c * c)) * (T(1) / l2));
       const T k = (p[0] * p[0]) * e;
-      acc[0] += adj * ((T(2) * p[0]) * e);
-      acc[1] -= adj * (k * (((T(4) * c) * s) * x) / (l2 * p[1]));
-      acc[2] += adj * (k * (T(4) * (c * c)) / (l2 * p[2]));
-      return;
+      d[0] = (T(2) * p[0]) * e;
+      d[1] = -((k * (((T(4) * c) * s) * x)) * (T(1) / (l2 * p[1])));
+      d[2] = (k * (T(4) * (c * c))) * (T(1) / (l2 * p[2]));
+      return k;
     }
     case OP_QCP: {  // amplitude, ell_e, P, ell_p
-      const T x = (pi * ar) / p[2];
-      const T s = m_sin(x), c = m_cos(x);
+      const T u = ar * (T(1) / p[2]);
+      const T x = pi * u;
+      T s, c;
+      m_sincospi(u, &s, &c);
       const T lp2 = p[3] * p[3];
-      const T e = m_exp((T(-2) * (c * c)) / lp2 - r2 / (T(2) * (p[1] * p[1])));
+      const T le2 = p[1] * p[1];
+      const T e = m_exp((T(-2) * (c * c)) * (T(1) / lp2) -
+                        r2 * (T(1) / (T(2) * le2)));
       const T k = (p[0] * p[0]) * e;
-      acc[0] += adj * ((T(2) * p[0]) * e);
-      acc[1] += adj * (k * (r2 / ((p[1] * p[1]) * p[1])));
-      acc[2] -= adj * (k * (((T(4) * c) * s) * x) / (lp2 * p[2]));
-      acc[3] += adj * (k * (T(4) * (c * c)) / (lp2 * p[3]));
-      return;
+      d[0] = (T(2) * p[0]) * e;
+      d[1] = k * (r2 * (T(1) / (le2 * p[1])));
+      d[2] = -((k * (((T(4) * c) * s) * x)) * (T(1) / (lp2 * p[2])));
+      d[3] = (k * (T(4) * (c * c))) * (T(1) / (lp2 * p[3]));
+      return k;
     }
   }
+  return T(0);
 }
 
-// One element's contribution g * dk(r)/dp to acc: the program run forward
-// keeping every entry's value, then the adjoint g walked back through it
-// (ADD passes it to both entries, MUL to each times the other's value).
+// The interpreter of B1': one element's contribution g * dk(r)/dp to acc.
+// The program runs forward keeping every entry's value and every leaf's
+// derivatives (d, indexed like the parameters), then the adjoint g walks
+// back through it (ADD passes it to both entries, MUL to each times the
+// other's value) and weighs each leaf's derivatives.
 template <typename T>
 __device__ __forceinline__ void element_grad(const Program& prog, const T* p,
                                              T r, T g, T* acc) {
   const int n = prog.n_ops;
-  if (n == 1) {  // a single leaf: no values to keep
-    leaf_grad<T>(prog.op[0], p + prog.off[0], r, g, acc + prog.off[0]);
-    return;
-  }
   T val[MAX_OPS];
   T adj[MAX_OPS];
+  T d[MAX_PARAMS];
   for (int k = 0; k < n; ++k) {
     const int op = prog.op[k];
     if (op == OP_ADD) {
@@ -462,7 +683,7 @@ __device__ __forceinline__ void element_grad(const Program& prog, const T* p,
     } else if (op == OP_MUL) {
       val[k] = val[prog.lhs[k]] * val[prog.rhs[k]];
     } else {
-      val[k] = leaf<T>(op, p + prog.off[k], r);
+      val[k] = leaf_vd<T>(op, p + prog.off[k], r, d + prog.off[k]);
     }
     adj[k] = T(0);
   }
@@ -477,96 +698,371 @@ __device__ __forceinline__ void element_grad(const Program& prog, const T* p,
       adj[prog.lhs[k]] += a * val[prog.rhs[k]];
       adj[prog.rhs[k]] += a * val[prog.lhs[k]];
     } else {
-      leaf_grad<T>(op, p + prog.off[k], r, a, acc + prog.off[k]);
+      const int off = prog.off[k];
+      const int np = leaf_n_params(op);
+      for (int m = 0; m < np; ++m) acc[off + m] += a * d[off + m];
     }
   }
+}
+
+// One element's contribution g * dk(r)/dp as the kernel instance of MODE
+// takes it.  A single leaf adds into acc0[0 .. its parameters), a pair into
+// acc0 and acc1 (one per leaf), both indexed only at compile time; any other
+// program runs the interpreter on par and adds into acc[0 .. n_params).
+template <typename T, int MODE>
+__device__ __forceinline__ void program_grad(const Program& prog, const T* p0,
+                                             const T* p1, const T* par, T r,
+                                             T g, T* acc0, T* acc1, T* acc) {
+  if constexpr (MODE >= OP_C) {
+    T d[LEAF_PARAMS] = {};
+    leaf_vd<T>(MODE, p0, r, d);
+#pragma unroll
+    for (int m = 0; m < leaf_n_params(MODE); ++m) acc0[m] += g * d[m];
+  } else if constexpr (MODE == MODE_PAIR) {
+    T d0[LEAF_PARAMS] = {};
+    T d1[LEAF_PARAMS] = {};
+    const T k0 = leaf_vd<T>(prog.op[0], p0, r, d0);
+    const T k1 = leaf_vd<T>(prog.op[1], p1, r, d1);
+    const bool mul = prog.op[2] == OP_MUL;
+    const T a0 = mul ? g * k1 : g;
+    const T a1 = mul ? g * k0 : g;
+    // a leaf's unused derivatives are 0
+#pragma unroll
+    for (int m = 0; m < LEAF_PARAMS; ++m) {
+      acc0[m] += a0 * d0[m];
+      acc1[m] += a1 * d1[m];
+    }
+  } else {
+    element_grad<T>(prog, par, r, g, acc);
+  }
+}
+
+// The instance a program runs: its leaf's, the pair's, or the interpreter.
+static inline int program_mode(const Program& prog) {
+  if (prog.n_ops == 1 && is_leaf_op(prog.op[0])) return prog.op[0];
+  if (prog.n_ops == 3 && is_leaf_op(prog.op[0]) && is_leaf_op(prog.op[1]) &&
+      !is_leaf_op(prog.op[2]) && prog.off[0] == 0) {
+    return MODE_PAIR;
+  }
+  return MODE_ANY;
+}
+
+// The tile pairs (I, J), I >= J, of a matrix of `tiles` x `tiles` tiles, in
+// the order both kernels walk them: pair p is row I = the largest I with
+// I (I + 1) / 2 <= p, column J = p - I (I + 1) / 2.  The square root only
+// proposes I; the two integer loops make it exact at every p.
+__host__ __device__ __forceinline__ long long n_tile_pairs(long long tiles) {
+  return tiles * (tiles + 1) / 2;
+}
+
+__host__ __device__ __forceinline__ void tile_pair(long long p, int* I,
+                                                   int* J) {
+  long long i = (long long)((sqrt(8.0 * (double)p + 1.0) - 1.0) * 0.5);
+  while (i * (i + 1) / 2 > p) --i;
+  while ((i + 1) * (i + 2) / 2 <= p) ++i;
+  *I = (int)i;
+  *J = (int)(p - i * (i + 1) / 2);
 }
 
 #ifdef __CUDACC__
 
+// A thread's share of a tile: VEC neighbouring columns (16 bytes) in each of
+// PASSES rows, ROWS_PER_PASS rows apart.
 template <typename T>
-__global__ void __launch_bounds__(TILE_X * BLOCK_Y)
-kernel_matrix_kernel(const T* __restrict__ t, const T* __restrict__ params,
-                     const T* __restrict__ jitter, T* __restrict__ out,
-                     int n, int n_params, const Program prog) {
-  __shared__ T par[MAX_PARAMS];
-  const int tid = threadIdx.y * TILE_X + threadIdx.x;
-  for (int k = tid; k < n_params; k += TILE_X * BLOCK_Y) par[k] = params[k];
-  __syncthreads();
+struct Share {
+  static constexpr int VEC = 16 / (int)sizeof(T);
+  static constexpr int THREADS_PER_ROW = TILE / VEC;
+  static constexpr int ROWS_PER_PASS = THREADS / THREADS_PER_ROW;
+  static constexpr int PASSES = TILE / ROWS_PER_PASS;
+};
 
-  const int j = blockIdx.x * TILE_X + threadIdx.x;
-  if (j >= n) return;
-  const T tj = t[j];
-  const T jit = jitter[0];
+__device__ __forceinline__ void store16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+// v[0 .. VEC) to a[row, col .. col + VEC) of an n x n matrix, inside the
+// matrix only; one 16-byte store when `vec` (n a multiple of VEC and a
+// aligned, so a column in range has its whole group in range).
+template <typename T>
+__device__ __forceinline__ void store_group(T* a, int row, int col,
+                                            const T* v, int n, bool vec) {
+  if (row >= n || col >= n) return;
+  T* at = a + (size_t)row * (size_t)n + (size_t)col;
+  if (vec) {
+    store16(at, v);
+    return;
+  }
 #pragma unroll
-  for (int k = 0; k < TILE_Y / BLOCK_Y; ++k) {
-    const int i = blockIdx.y * TILE_Y + threadIdx.y + k * BLOCK_Y;
-    if (i >= n) break;
-    T v = eval_program<T>(prog, par, t[i] - tj);
-    if (i == j) v = v + jit;
-    out[(size_t)i * (size_t)n + (size_t)j] = v;
+  for (int u = 0; u < Share<T>::VEC; ++u) {
+    if (col + u < n) at[u] = v[u];
   }
 }
 
-#define GRAD_THREADS (TILE_X * BLOCK_Y)
-
-// B1': per-block partial sums of g[m] = sum G[i, j] dk(t_i - t_j)/dp[m],
-// one row of n_params per block, over the same tiles as the forward.
+// The same group read (0 outside the matrix).
 template <typename T>
-__global__ void __launch_bounds__(GRAD_THREADS)
+__device__ __forceinline__ void load_group(const T* a, int row, int col, T* v,
+                                           int n, bool vec) {
+#pragma unroll
+  for (int u = 0; u < Share<T>::VEC; ++u) v[u] = T(0);
+  if (row >= n || col >= n) return;
+  const T* at = a + (size_t)row * (size_t)n + (size_t)col;
+  if (vec) {
+    load16(at, v);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < Share<T>::VEC; ++u) {
+    if (col + u < n) v[u] = at[u];
+  }
+}
+
+// The slices of t a tile pair reads (0 outside the matrix).
+template <typename T>
+__device__ __forceinline__ void load_times(const T* __restrict__ t, int n,
+                                           int I, int J, T* ti, T* tj) {
+  const int tid = threadIdx.x;
+  if (tid < TILE) {
+    const int i = I * TILE + tid;
+    ti[tid] = i < n ? t[i] : T(0);
+  } else if (tid < 2 * TILE) {
+    const int j = J * TILE + tid - TILE;
+    tj[tid - TILE] = j < n ? t[j] : T(0);
+  }
+}
+
+// B1.  Block b takes the tile pairs b, b + gridDim.x, ...: the values of
+// tile (I, J) go to the matrix along their rows and, for I > J, through
+// `tile` to the mirrored tile (J, I) along its rows.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS)
+kernel_matrix_kernel(const T* __restrict__ t, const T* __restrict__ params,
+                     const T* __restrict__ jitter, T* __restrict__ out,
+                     int n, int n_params, bool vec, const Program prog) {
+  typedef Share<T> S;
+  __shared__ T par[MAX_PARAMS];
+  __shared__ T cst[(MODE == MODE_ANY ? MAX_OPS : 2) * N_CONSTS];
+  __shared__ T ti[TILE];
+  __shared__ T tj[TILE];
+  __shared__ T tile[TILE][TILE + 1];
+  const int tid = threadIdx.x;
+  for (int k = tid; k < n_params; k += THREADS) par[k] = params[k];
+  __syncthreads();
+  // the parameter-only terms, once per block
+  if constexpr (MODE >= OP_C) {
+    if (tid == 0) leaf_consts<T>(MODE, par, cst);
+  } else {
+    if (tid < prog.n_ops && is_leaf_op(prog.op[tid])) {
+      leaf_consts<T>(prog.op[tid], par + prog.off[tid], cst + tid * N_CONSTS);
+    }
+  }
+  __syncthreads();
+  // a single leaf and a pair keep them in registers
+  T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
+  if constexpr (MODE != MODE_ANY) {
+    const int off1 = MODE == MODE_PAIR ? prog.off[1] : 0;
+#pragma unroll
+    for (int m = 0; m < LEAF_PARAMS; ++m) {
+      p0[m] = par[m];
+      p1[m] = par[off1 + m];
+    }
+#pragma unroll
+    for (int m = 0; m < N_CONSTS; ++m) {
+      c0[m] = cst[m];
+      c1[m] = cst[N_CONSTS + m];
+    }
+  }
+  const T jit = jitter[0];
+  const int cx = (tid % S::THREADS_PER_ROW) * S::VEC;  // first column
+  const int ry = tid / S::THREADS_PER_ROW;             // row in a pass
+  const int tiles = (n + TILE - 1) / TILE;
+  const long long pairs = n_tile_pairs(tiles);
+
+  for (long long pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    int I, J;
+    tile_pair(pair, &I, &J);
+    __syncthreads();  // the last pair's readers are done
+    load_times<T>(t, n, I, J, ti, tj);
+    __syncthreads();
+#pragma unroll
+    for (int pass = 0; pass < S::PASSES; ++pass) {
+      const int li = ry + pass * S::ROWS_PER_PASS;
+      const int i = I * TILE + li;
+      T v[S::VEC];
+#pragma unroll
+      for (int u = 0; u < S::VEC; ++u) {
+        v[u] = program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                      ti[li] - tj[cx + u]);
+        if (i == J * TILE + cx + u) v[u] = v[u] + jit;
+      }
+      store_group<T>(out, i, J * TILE + cx, v, n, vec);
+      if (I != J) {
+#pragma unroll
+        for (int u = 0; u < S::VEC; ++u) tile[li][cx + u] = v[u];
+      }
+    }
+    if (I != J) {  // the same for the whole block
+      __syncthreads();
+#pragma unroll
+      for (int pass = 0; pass < S::PASSES; ++pass) {
+        const int lj = ry + pass * S::ROWS_PER_PASS;
+        T v[S::VEC];
+#pragma unroll
+        for (int u = 0; u < S::VEC; ++u) v[u] = tile[cx + u][lj];
+        store_group<T>(out, J * TILE + lj, I * TILE + cx, v, n, vec);
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// B1', first pass: block b sums G[i, j] dk(t_i - t_j)/dp over the tile
+// pairs b, b + gridDim.x, ... into partial[b, 0 .. n_params).  For I > J an
+// element stands for its mirror too: its weight is G[i, j] + G[j, i], the
+// second read along the rows of tile (J, I) into `tile`.
+__host__ __device__ __forceinline__ constexpr int grad_min_blocks(int mode) {
+  return (mode < OP_C || mode == OP_RQP || mode == OP_NP || mode == OP_QNP ||
+          mode == OP_NRQP) ? GRAD_MIN_BLOCKS_HEAVY : GRAD_MIN_BLOCKS_LIGHT;
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS, grad_min_blocks(MODE))
 kernel_matrix_grad_kernel(const T* __restrict__ t,
                           const T* __restrict__ params,
                           const T* __restrict__ G, T* __restrict__ partial,
-                          int n, int n_params, const Program prog) {
+                          int n, int n_params, bool vec, const Program prog) {
+  typedef Share<T> S;
   __shared__ T par[MAX_PARAMS];
-  __shared__ T red[GRAD_THREADS];
-  const int tid = threadIdx.y * TILE_X + threadIdx.x;
-  for (int k = tid; k < n_params; k += GRAD_THREADS) par[k] = params[k];
+  __shared__ T ti[TILE];
+  __shared__ T tj[TILE];
+  __shared__ T tile[TILE][TILE + 1];
+  __shared__ T red[WARPS * MAX_PARAMS];
+  const int tid = threadIdx.x;
+  for (int k = tid; k < n_params; k += THREADS) par[k] = params[k];
   __syncthreads();
-
-  T acc[MAX_PARAMS];
-  for (int m = 0; m < n_params; ++m) acc[m] = T(0);
-  const int j = blockIdx.x * TILE_X + threadIdx.x;
-  if (j < n) {
-    const T tj = t[j];
+  // a single leaf and a pair keep parameters and sums in registers
+  T p0[LEAF_PARAMS], p1[LEAF_PARAMS], acc0[LEAF_PARAMS], acc1[LEAF_PARAMS];
+  T acc[MODE == MODE_ANY ? MAX_PARAMS : 1];
+  const int off1 = MODE == MODE_PAIR ? prog.off[1] : 0;
 #pragma unroll
-    for (int k = 0; k < TILE_Y / BLOCK_Y; ++k) {
-      const int i = blockIdx.y * TILE_Y + threadIdx.y + k * BLOCK_Y;
-      if (i >= n) break;
-      element_grad<T>(prog, par, t[i] - tj,
-                      G[(size_t)i * (size_t)n + (size_t)j], acc);
+  for (int m = 0; m < LEAF_PARAMS; ++m) {
+    p0[m] = par[m];
+    p1[m] = par[off1 + m];
+    acc0[m] = T(0);
+    acc1[m] = T(0);
+  }
+  if constexpr (MODE == MODE_ANY) {
+    for (int m = 0; m < n_params; ++m) acc[m] = T(0);
+  }
+  const int cx = (tid % S::THREADS_PER_ROW) * S::VEC;
+  const int ry = tid / S::THREADS_PER_ROW;
+  const int tiles = (n + TILE - 1) / TILE;
+  const long long pairs = n_tile_pairs(tiles);
+
+  for (long long pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    int I, J;
+    tile_pair(pair, &I, &J);
+    __syncthreads();  // the last pair's readers are done
+    load_times<T>(t, n, I, J, ti, tj);
+    if (I != J) {  // tile[j][i] = G[J * TILE + j, I * TILE + i]
+#pragma unroll
+      for (int pass = 0; pass < S::PASSES; ++pass) {
+        const int lj = ry + pass * S::ROWS_PER_PASS;
+        T w[S::VEC];
+        load_group<T>(G, J * TILE + lj, I * TILE + cx, w, n, vec);
+#pragma unroll
+        for (int u = 0; u < S::VEC; ++u) tile[lj][cx + u] = w[u];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int pass = 0; pass < S::PASSES; ++pass) {
+      const int li = ry + pass * S::ROWS_PER_PASS;
+      const int i = I * TILE + li;
+      T g[S::VEC];
+      load_group<T>(G, i, J * TILE + cx, g, n, vec);
+#pragma unroll
+      for (int u = 0; u < S::VEC; ++u) {
+        const int lj = cx + u;
+        if (i < n && J * TILE + lj < n) {
+          const T weight = I != J ? g[u] + tile[lj][li] : g[u];
+          program_grad<T, MODE>(prog, p0, p1, par, ti[li] - tj[lj], weight,
+                                acc0, acc1, acc);
+        }
+      }
     }
   }
-  // every thread takes part in the block sums, in range or not
-  const size_t block = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  for (int m = 0; m < n_params; ++m) {
-    red[tid] = acc[m];
-    __syncthreads();
-    for (int s = GRAD_THREADS / 2; s > 0; s >>= 1) {
-      if (tid < s) red[tid] += red[tid + s];
-      __syncthreads();
+
+  // one reduction per block: shuffles inside each warp, then the warps'
+  // sums in a fixed order
+  const int lane = tid % 32, warp = tid / 32;
+  if constexpr (MODE >= OP_C) {
+#pragma unroll
+    for (int m = 0; m < leaf_n_params(MODE); ++m) {
+      const T s = warp_sum(acc0[m]);
+      if (lane == 0) red[warp * MAX_PARAMS + m] = s;
     }
-    if (tid == 0) partial[block * (size_t)n_params + m] = red[0];
-    __syncthreads();
+  } else if constexpr (MODE == MODE_PAIR) {
+    const int np0 = leaf_n_params(prog.op[0]);
+    const int np1 = leaf_n_params(prog.op[1]);
+#pragma unroll
+    for (int m = 0; m < LEAF_PARAMS; ++m) {
+      const T s0 = warp_sum(acc0[m]);
+      const T s1 = warp_sum(acc1[m]);
+      if (lane == 0 && m < np0) red[warp * MAX_PARAMS + m] = s0;
+      if (lane == 0 && m < np1) red[warp * MAX_PARAMS + off1 + m] = s1;
+    }
+  } else {
+    for (int m = 0; m < n_params; ++m) {
+      const T s = warp_sum(acc[m]);
+      if (lane == 0) red[warp * MAX_PARAMS + m] = s;
+    }
+  }
+  __syncthreads();
+  for (int m = tid; m < n_params; m += THREADS) {
+    T s = T(0);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += red[w * MAX_PARAMS + m];
+    partial[(size_t)blockIdx.x * (size_t)n_params + m] = s;
   }
 }
 
 // B1', second pass: out[m] = the sum of column m of the partial rows, each
 // thread over a fixed stride of rows, then a tree in shared memory.
 template <typename T>
-__global__ void __launch_bounds__(GRAD_THREADS)
+__global__ void __launch_bounds__(THREADS)
 kernel_matrix_grad_sum(const T* __restrict__ partial, T* __restrict__ out,
                        int n_blocks, int n_params) {
-  __shared__ T red[GRAD_THREADS];
+  __shared__ T red[THREADS];
   const int m = blockIdx.x;
   const int tid = threadIdx.x;
   T s = T(0);
-  for (int b = tid; b < n_blocks; b += GRAD_THREADS) {
+  for (int b = tid; b < n_blocks; b += THREADS) {
     s += partial[(size_t)b * (size_t)n_params + m];
   }
   red[tid] = s;
   __syncthreads();
-  for (int w = GRAD_THREADS / 2; w > 0; w >>= 1) {
+  for (int w = THREADS / 2; w > 0; w >>= 1) {
     if (tid < w) red[tid] += red[tid + w];
     __syncthreads();
   }
@@ -574,12 +1070,15 @@ kernel_matrix_grad_sum(const T* __restrict__ partial, T* __restrict__ out,
 }
 
 // Checks the arguments every launch shares and fills the program; returns
-// a CUDA error code (0 when all is well).
-static int make_program(int n, int n_params, const int* ops,
+// a CUDA error code (0 when all is well).  n_blocks is the grid: at least
+// one block, at most one per tile pair.
+static int make_program(int n, int n_params, int n_blocks, const int* ops,
                         const int* offs, const int* lhs, const int* rhs,
                         int n_ops, Program* prog) {
-  if (n < 1 || (n + TILE_Y - 1) / TILE_Y > 65535 || n_params < 1 ||
-      n_params > MAX_PARAMS || n_ops < 1 || n_ops > MAX_OPS) {
+  if (n < 1 || (n + TILE - 1) / TILE > 65535 || n_params < 1 ||
+      n_params > MAX_PARAMS || n_ops < 1 || n_ops > MAX_OPS ||
+      n_blocks < 1 ||
+      (long long)n_blocks > n_tile_pairs((n + TILE - 1) / TILE)) {
     return (int)cudaErrorInvalidValue;
   }
   prog->n_ops = n_ops;
@@ -587,9 +1086,14 @@ static int make_program(int n, int n_params, const int* ops,
     const bool used = k < n_ops;
     prog->op[k] = used ? ops[k] : 0;
     prog->off[k] = used ? offs[k] : 0;
-    prog->lhs[k] = used && lhs ? lhs[k] : -1;
-    prog->rhs[k] = used && rhs ? rhs[k] : -1;
-    if (used && lhs && (ops[k] == OP_ADD || ops[k] == OP_MUL) &&
+    prog->lhs[k] = used ? lhs[k] : -1;
+    prog->rhs[k] = used ? rhs[k] : -1;
+    if (!used) continue;
+    if (ops[k] < 0 || ops[k] >= N_OPCODES || offs[k] < 0 ||
+        offs[k] + leaf_n_params(ops[k]) > n_params) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (!is_leaf_op(ops[k]) &&
         (lhs[k] < 0 || lhs[k] >= k || rhs[k] < 0 || rhs[k] >= k)) {
       return (int)cudaErrorInvalidValue;
     }
@@ -598,80 +1102,107 @@ static int make_program(int n, int n_params, const int* ops,
 }
 
 template <typename T>
+static bool aligned16(const T* a, int n) {
+  return n % Share<T>::VEC == 0 && ((uintptr_t)a) % 16 == 0;
+}
+
+template <typename T>
 static int launch(int device, const T* t, const T* params, const T* jitter,
-                  T* out, int n, int n_params, const int* ops,
-                  const int* offs, int n_ops, void* stream) {
+                  T* out, int n, int n_params, int n_blocks, const int* ops,
+                  const int* offs, const int* lhs, const int* rhs, int n_ops,
+                  void* stream) {
   Program prog;
-  int bad = make_program(n, n_params, ops, offs, nullptr, nullptr, n_ops,
+  int bad = make_program(n, n_params, n_blocks, ops, offs, lhs, rhs, n_ops,
                          &prog);
   if (bad) return bad;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(TILE_X, BLOCK_Y);
-  const dim3 grid((n + TILE_X - 1) / TILE_X, (n + TILE_Y - 1) / TILE_Y);
-  kernel_matrix_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      t, params, jitter, out, n, n_params, prog);
+  const bool vec = aligned16(out, n);
+  cudaStream_t s = (cudaStream_t)stream;
+#define RUN(MODE)                                                  \
+  kernel_matrix_kernel<T, MODE><<<n_blocks, THREADS, 0, s>>>(      \
+      t, params, jitter, out, n, n_params, vec, prog)
+#define CASE(OP) case OP: RUN(OP); break;
+  switch (program_mode(prog)) {
+    FOR_EACH_LEAF(CASE)
+    case MODE_PAIR: RUN(MODE_PAIR); break;
+    default: RUN(MODE_ANY); break;
+  }
+#undef CASE
+#undef RUN
   return (int)cudaGetLastError();
 }
 
-// partial holds ceil(n / TILE_X) * ceil(n / TILE_Y) rows of n_params.
+// partial holds n_blocks rows of n_params.
 template <typename T>
 static int launch_grad(int device, const T* t, const T* params, const T* G,
-                       T* partial, T* out, int n, int n_params,
+                       T* partial, T* out, int n, int n_params, int n_blocks,
                        const int* ops, const int* offs, const int* lhs,
                        const int* rhs, int n_ops, void* stream) {
   Program prog;
-  int bad = make_program(n, n_params, ops, offs, lhs, rhs, n_ops, &prog);
+  int bad = make_program(n, n_params, n_blocks, ops, offs, lhs, rhs, n_ops,
+                         &prog);
   if (bad) return bad;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(TILE_X, BLOCK_Y);
-  const dim3 grid((n + TILE_X - 1) / TILE_X, (n + TILE_Y - 1) / TILE_Y);
-  kernel_matrix_grad_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      t, params, G, partial, n, n_params, prog);
+  const bool vec = aligned16(G, n);
+  cudaStream_t s = (cudaStream_t)stream;
+#define RUN(MODE)                                                  \
+  kernel_matrix_grad_kernel<T, MODE><<<n_blocks, THREADS, 0, s>>>( \
+      t, params, G, partial, n, n_params, vec, prog)
+#define CASE(OP) case OP: RUN(OP); break;
+  switch (program_mode(prog)) {
+    FOR_EACH_LEAF(CASE)
+    case MODE_PAIR: RUN(MODE_PAIR); break;
+    default: RUN(MODE_ANY); break;
+  }
+#undef CASE
+#undef RUN
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kernel_matrix_grad_sum<T><<<n_params, GRAD_THREADS, 0,
-                              (cudaStream_t)stream>>>(
-      partial, out, (int)(grid.x * grid.y), n_params);
+  kernel_matrix_grad_sum<T><<<n_params, THREADS, 0, s>>>(partial, out,
+                                                         n_blocks, n_params);
   return (int)cudaGetLastError();
 }
+
 extern "C" int gpyrn_kernel_matrix_f64(int device, const double* t,
                                        const double* params,
                                        const double* jitter, double* out,
-                                       int n, int n_params, const int* ops,
-                                       const int* offs, int n_ops,
-                                       void* stream) {
-  return launch<double>(device, t, params, jitter, out, n, n_params, ops,
-                        offs, n_ops, stream);
+                                       int n, int n_params, int n_blocks,
+                                       const int* ops, const int* offs,
+                                       const int* lhs, const int* rhs,
+                                       int n_ops, void* stream) {
+  return launch<double>(device, t, params, jitter, out, n, n_params, n_blocks,
+                        ops, offs, lhs, rhs, n_ops, stream);
 }
 
 extern "C" int gpyrn_kernel_matrix_f32(int device, const float* t,
                                        const float* params,
                                        const float* jitter, float* out,
-                                       int n, int n_params, const int* ops,
-                                       const int* offs, int n_ops,
-                                       void* stream) {
-  return launch<float>(device, t, params, jitter, out, n, n_params, ops,
-                       offs, n_ops, stream);
+                                       int n, int n_params, int n_blocks,
+                                       const int* ops, const int* offs,
+                                       const int* lhs, const int* rhs,
+                                       int n_ops, void* stream) {
+  return launch<float>(device, t, params, jitter, out, n, n_params, n_blocks,
+                       ops, offs, lhs, rhs, n_ops, stream);
 }
 
 extern "C" int gpyrn_kernel_matrix_grad_f64(
     int device, const double* t, const double* params, const double* G,
-    double* partial, double* out, int n, int n_params, const int* ops,
-    const int* offs, const int* lhs, const int* rhs, int n_ops,
-    void* stream) {
+    double* partial, double* out, int n, int n_params, int n_blocks,
+    const int* ops, const int* offs, const int* lhs, const int* rhs,
+    int n_ops, void* stream) {
   return launch_grad<double>(device, t, params, G, partial, out, n, n_params,
-                             ops, offs, lhs, rhs, n_ops, stream);
+                             n_blocks, ops, offs, lhs, rhs, n_ops, stream);
 }
 
 extern "C" int gpyrn_kernel_matrix_grad_f32(
     int device, const float* t, const float* params, const float* G,
-    float* partial, float* out, int n, int n_params, const int* ops,
-    const int* offs, const int* lhs, const int* rhs, int n_ops,
-    void* stream) {
+    float* partial, float* out, int n, int n_params, int n_blocks,
+    const int* ops, const int* offs, const int* lhs, const int* rhs,
+    int n_ops, void* stream) {
   return launch_grad<float>(device, t, params, G, partial, out, n, n_params,
-                            ops, offs, lhs, rhs, n_ops, stream);
+                            n_blocks, ops, offs, lhs, rhs, n_ops, stream);
 }
 
 #endif  // __CUDACC__

@@ -41,7 +41,7 @@ from gpyrn_tpu_torch.ops import blocked as _blocked
 from gpyrn_tpu_torch.ops import means as means_mod
 from gpyrn_tpu_torch.ops.linalg import (PREDICT_NUGGET, TRAIN_NUGGET,
                                         cross_kernel_matrix, kernel_diag,
-                                        kernel_matrix)
+                                        kernel_matrix_stack)
 
 __all__ = [
     "GPRNSpec", "spec_from_components", "pack_parameters",
@@ -161,11 +161,9 @@ class Engine:
         node_p, weight_p, _, jitters = unpack_parameters(spec, theta)
         node_c = self._core(node_p, self.node_maps)
         weight_c = self._core(weight_p, self.weight_maps)
-        Kf = torch.stack([kernel_matrix(s, cp, t, TRAIN_NUGGET)
-                          for s, cp in zip(spec.node_structs, node_c)])
-        Kw_flat = torch.stack([kernel_matrix(s, cp, t, TRAIN_NUGGET)
-                               for s, cp in zip(spec.weight_structs,
-                                                weight_c)])
+        Kf = kernel_matrix_stack(spec.node_structs, node_c, t, TRAIN_NUGGET)
+        Kw_flat = kernel_matrix_stack(spec.weight_structs, weight_c, t,
+                                      TRAIN_NUGGET)
         return Kf, Kw_flat, jitters
 
     def _mean_values(self, theta, t):
@@ -481,8 +479,7 @@ class Engine:
         v_rows = torch.cat([
             varF, varW.permute(1, 0, 2).reshape(q * p, -1)])
 
-        K_all = torch.stack([kernel_matrix(s, cp, t, PREDICT_NUGGET)
-                             for s, cp in zip(structs, all_params)])
+        K_all = kernel_matrix_stack(structs, all_params, t, PREDICT_NUGGET)
         Ks_all = torch.stack([cross_kernel_matrix(s, cp, tstar, t)
                               for s, cp in zip(structs, all_params)])
         Kss_diag = torch.stack([kernel_diag(s, cp, tstar, PREDICT_NUGGET)

@@ -11,30 +11,42 @@ where ``tr K = N k(0)`` for a stationary kernel, so the jitter needs no
 pass over K.  ``jitter_mult`` is ``linalg.F32_JITTER_MULT`` from
 ``kernel_matrix`` and 0 (the exact nugget) from ``kernel_matrix_plain``.
 
-The kernel (``csrc/kernel_matrix.cu``) is bound by its stores: N² × 8
-bytes in float64, 8 MB at N = 1000, with a few dozen FP64 operations per
-element for the transcendentals.  Its design keeps the N × N lag matrix,
-and the chain of N² temporaries that :func:`kernel_matrix_ref` writes
-(one tensor per operation of the formula), out of device memory: each
-element is formed in registers and stored once.  The structure tree is
-lowered here to a postfix program (:func:`encode_program`) that the one
-compiled kernel evaluates per element, so no structure needs its own
-build.
+Neither kernel (``csrc/kernel_matrix.cu``) is bound by its bytes (N² × 8
+in float64, 8 MB at N = 1000): an element costs an exp, a sin or a pow and
+some divisions in IEEE arithmetic, hundreds of FP64 operations.  So the
+design computes each lag once: every leaf is even in r, K and ∂k/∂θ are
+symmetric to the bit, and both kernels walk the 32 × 32 tile pairs I ≥ J
+only, handing the mirrored tile across through shared memory.  The N × N
+lag matrix and the chain of N² temporaries that :func:`kernel_matrix_ref`
+writes (one tensor per operation of the formula) never reach device
+memory.  The structure tree is lowered here to a postfix program
+(:func:`encode_program`); a program that is one leaf, or two leaves joined
+by ``+`` or ``*``, runs a kernel instance with everything in registers,
+and a longer one an interpreter, so no structure needs its own build.
 
 Its gradient with respect to ``params`` is a second kernel of the same
 source (B1′, :func:`kernel_matrix_grad_cuda`): the contraction
 ``g[m] = Σᵢⱼ G[i, j] ∂k(t_i − t_j)/∂params[m]`` of the adjoint G with the
 kernel's parameter derivatives, where the JAX package takes the gradient
-by autodiff through the Pallas kernel.  ``_KernelMatrix`` joins the two
-for autograd; the jitter is computed outside it by differentiable tensor
-ops, so its gradient is ``trace(G)`` chained through ``k(0)``.  ``t``
-takes no gradient (the JAX package differentiates θ only).
+by autodiff through the Pallas kernel.  A few persistent blocks per SM
+(:func:`grad_blocks`) each write one row of partial sums, and a second
+kernel adds the rows in a fixed order: no atomics, the same bits from run
+to run.  ``_KernelMatrix`` joins the two for autograd; the jitter is
+computed outside it by differentiable tensor ops, so its gradient is
+``trace(G)`` chained through ``k(0)``.  ``t`` takes no gradient (the JAX
+package differentiates θ only).
+
+:func:`kernel_matrix_stack_cuda` builds the matrices of a list of
+structures straight into one ``(B, N, N)`` tensor (one B1 launch per
+slice, one B1′ launch per slice of the adjoint in the backward), which
+saves the copy of ``torch.stack``.
 
 :func:`kernel_matrix_cuda` launches the kernel on a CUDA tensor and
-raises on anything else.  :func:`kernel_matrix_ref` and
-:func:`kernel_matrix_grad_ref` are the plain PyTorch versions: the CPU
-path runs the first (and autograd through it), and on the card only the
-tests and ``chip_smoke.py`` call them, to compare.
+raises on anything else.  :func:`kernel_matrix_ref`,
+:func:`kernel_matrix_stack_ref` and :func:`kernel_matrix_grad_ref` are the
+plain PyTorch versions: the CPU path runs the first two (and autograd
+through them), and on the card only the tests and ``chip_smoke.py`` call
+them, to compare.
 """
 from __future__ import annotations
 
@@ -48,7 +60,9 @@ from gpyrn_tpu_torch.ops import kernels as _k
 
 __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_ref", "kernel_matrix_cuda",
-           "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda", "LAUNCHES",
+           "kernel_matrix_stack_ref", "kernel_matrix_stack_cuda",
+           "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda",
+           "forward_blocks", "grad_blocks", "LAUNCHES",
            "reset_launch_counts"]
 
 # Op codes of the postfix program.  Must equal ``enum Op`` in
@@ -62,9 +76,12 @@ OPCODES = {
 MAX_OPS = 32
 MAX_STACK = 8
 MAX_PARAMS = 64
-# Tile of both kernels (csrc TILE_X / TILE_Y): B1′ writes one partial row
-# per tile.
+# Tile of both kernels (csrc TILE), and the cap of B1′'s grid of persistent
+# blocks: 8 per SM, twice what an SM holds at once (4 blocks of 256 threads
+# at 64 registers), which measured faster than 4 at N = 4096 and is every
+# tile pair at N = 1000 (``probe_kernels.py``).
 TILE = 32
+GRAD_BLOCKS_PER_SM = 8
 
 # The stationary leaves the kernel evaluates: the Pallas kernel's set
 # (``pallas_kernels.py::_SAFE_TAGS``).  WhiteNoise (it branches on the
@@ -79,6 +96,25 @@ LAUNCHES = {"kernel_matrix": 0, "kernel_matrix_grad": 0}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def tile_pairs(n: int) -> int:
+    """The tile pairs (I, J), I ≥ J, both kernels walk for an n × n
+    matrix."""
+    tiles = -(-n // TILE)
+    return tiles * (tiles + 1) // 2
+
+
+def forward_blocks(n: int) -> int:
+    """B1's grid: one block per tile pair."""
+    return tile_pairs(n)
+
+
+def grad_blocks(n: int, sm_count: int) -> int:
+    """B1′'s grid, and the rows of its partial buffer: persistent blocks,
+    ``GRAD_BLOCKS_PER_SM`` per SM, never more than the tile pairs.  It
+    depends on n and the card only."""
+    return min(tile_pairs(n), GRAD_BLOCKS_PER_SM * sm_count)
 
 
 def cuda_supported(structure) -> bool:
@@ -172,19 +208,23 @@ _SYMBOLS = {torch.float64: ("gpyrn_kernel_matrix_f64",
 
 def _function(dtype, grad=False):
     fn = getattr(_build.load("kernel_matrix"), _SYMBOLS[dtype][int(grad)])
-    p = ctypes.c_void_p
-    if grad:
-        fn.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_int,
-                       ctypes.c_int, p, p, p, p, ctypes.c_int, p]
-    else:
-        fn.argtypes = [ctypes.c_int, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       p, p, ctypes.c_int, p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # device, t, params, jitter | G, [partial,] out, n, n_params, n_blocks,
+    # ops, offs, lhs, rhs, n_ops, stream
+    fn.argtypes = [i, p, p, p] + [p] * (1 + int(grad)) + [i, i, i, p, p, p,
+                                                          p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _ints(values):
     return (ctypes.c_int * len(values))(*values)
+
+
+def _program_args(structure):
+    prog = encode_program(structure)
+    return (_ints(prog.ops), _ints(prog.offsets), _ints(prog.lhs),
+            _ints(prog.rhs), len(prog.ops))
 
 
 def _check(structure, params, t):
@@ -212,18 +252,33 @@ def _check(structure, params, t):
                          f"the kernel takes at most {MAX_PARAMS}")
 
 
+def _launch(structure, params, jitter, t, out):
+    """B1 on the card: K + jitter·I into ``out``, a contiguous (N, N)
+    tensor or slice."""
+    n = t.shape[0]
+    err = _function(t.dtype)(
+        t.device.index, t.data_ptr(), params.data_ptr(), jitter.data_ptr(),
+        out.data_ptr(), n, params.shape[0], forward_blocks(n),
+        *_program_args(structure),
+        torch.cuda.current_stream(t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel_matrix launch failed with CUDA "
+                           f"error {err} (N={n}, {t.dtype})")
+    LAUNCHES["kernel_matrix"] += 1
+
+
 def _launch_grad(structure, params, t, G):
-    """B1′ on the card: the (n_params,) contraction of G with dK/dparams."""
-    prog = encode_program(structure)
+    """B1′ on the card: the (n_params,) contraction of a contiguous (N, N)
+    adjoint G with dK/dparams."""
     n, n_par = t.shape[0], params.shape[0]
-    tiles = -(-n // TILE)
-    partial = torch.empty((tiles * tiles, n_par), dtype=t.dtype,
-                          device=t.device)
+    n_blocks = grad_blocks(n, torch.cuda.get_device_properties(
+        t.device).multi_processor_count)
+    partial = torch.empty((n_blocks, n_par), dtype=t.dtype, device=t.device)
     out = torch.empty((n_par,), dtype=t.dtype, device=t.device)
     err = _function(t.dtype, grad=True)(
         t.device.index, t.data_ptr(), params.data_ptr(), G.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n, n_par, _ints(prog.ops),
-        _ints(prog.offsets), _ints(prog.lhs), _ints(prog.rhs), len(prog.ops),
+        partial.data_ptr(), out.data_ptr(), n, n_par, n_blocks,
+        *_program_args(structure),
         torch.cuda.current_stream(t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kernel_matrix_grad launch failed with CUDA "
@@ -238,18 +293,9 @@ class _KernelMatrix(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, jitter, t, structure):
-        prog = encode_program(structure)
         n = t.shape[0]
         out = torch.empty((n, n), dtype=t.dtype, device=t.device)
-        err = _function(t.dtype)(
-            t.device.index, t.data_ptr(), params.data_ptr(),
-            jitter.data_ptr(), out.data_ptr(), n, params.shape[0],
-            _ints(prog.ops), _ints(prog.offsets), len(prog.ops),
-            torch.cuda.current_stream(t.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"kernel_matrix launch failed with CUDA "
-                               f"error {err} (N={n}, {t.dtype})")
-        LAUNCHES["kernel_matrix"] += 1
+        _launch(structure, params, jitter, t, out)
         ctx.save_for_backward(params, t)
         ctx.structure = structure
         return out
@@ -265,6 +311,46 @@ class _KernelMatrix(torch.autograd.Function):
         return g_params, g_jitter, None, None
 
 
+class _KernelMatrixStack(torch.autograd.Function):
+    """The (B, N, N) stack of K_b = kernel_b(t; params_b) + jitter_b·I: one
+    B1 launch per slice of one buffer; in the backward one B1′ launch per
+    slice of G, and trace(G_b) for each jitter.  Inputs after ``structures``
+    are the B parameter tensors, then the B jitters."""
+
+    @staticmethod
+    def forward(ctx, t, structures, *inputs):
+        B, n = len(structures), t.shape[0]
+        params, jitters = inputs[:B], inputs[B:]
+        out = torch.empty((B, n, n), dtype=t.dtype, device=t.device)
+        for b in range(B):
+            _launch(structures[b], params[b], jitters[b], t, out[b])
+        ctx.save_for_backward(t, *params)
+        ctx.structures = structures
+        return out
+
+    @staticmethod
+    def backward(ctx, G):
+        t, *params = ctx.saved_tensors
+        B = len(params)
+        G = G.contiguous()
+        grads = [None] * (2 * B)
+        for b in range(B):
+            if ctx.needs_input_grad[2 + b]:
+                grads[b] = _launch_grad(ctx.structures[b], params[b], t, G[b])
+        if any(ctx.needs_input_grad[2 + B:]):
+            traces = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+            for b in range(B):
+                if ctx.needs_input_grad[2 + B + b]:
+                    grads[B + b] = traces[b]
+        return (None, None, *grads)
+
+
+def _check_no_grad(t):
+    if t.requires_grad:
+        raise ValueError("kernel_matrix_cuda differentiates params only; "
+                         "t must not require grad")
+
+
 def kernel_matrix_cuda(structure, params, t, nugget, jitter_mult):
     """Dense K(t, t) + jitter·I on the card, by the CUDA kernel;
     differentiable with respect to ``params`` (B1′ in the backward).
@@ -274,11 +360,36 @@ def kernel_matrix_cuda(structure, params, t, nugget, jitter_mult):
     same device in the same dtype.  Launches on the current stream and does
     not synchronise."""
     _check(structure, params, t)
-    if t.requires_grad:
-        raise ValueError("kernel_matrix_cuda differentiates params only; "
-                         "t must not require grad")
+    _check_no_grad(t)
     jitter = _jitter(structure, params, t, float(nugget), float(jitter_mult))
     return _KernelMatrix.apply(params, jitter, t, structure)
+
+
+def kernel_matrix_stack_ref(structures, params, t, nugget, jitter_mult):
+    """Plain PyTorch version of :func:`kernel_matrix_stack_cuda`: the
+    per-structure plain versions, stacked."""
+    return torch.stack([kernel_matrix_ref(s, p, t, nugget, jitter_mult)
+                        for s, p in zip(structures, params)])
+
+
+def kernel_matrix_stack_cuda(structures, params, t, nugget, jitter_mult):
+    """The ``(B, N, N)`` stack of dense K_b(t, t) + jitter_b·I for B kernel
+    structures on the card, each built by the CUDA kernel straight into its
+    slice of one tensor; differentiable with respect to every ``params[b]``
+    (B1′ on the matching slice of the adjoint).  Arguments as
+    :func:`kernel_matrix_cuda`, with a sequence of structures and one
+    parameter tensor for each."""
+    structures, params = tuple(structures), tuple(params)
+    if not structures or len(structures) != len(params):
+        raise ValueError(f"need one parameter tensor per structure and at "
+                         f"least one, got {len(structures)} structures and "
+                         f"{len(params)} parameter tensors")
+    for s, p in zip(structures, params):
+        _check(s, p, t)
+    _check_no_grad(t)
+    jitters = [_jitter(s, p, t, float(nugget), float(jitter_mult))
+               for s, p in zip(structures, params)]
+    return _KernelMatrixStack.apply(t, structures, *params, *jitters)
 
 
 def kernel_matrix_grad_cuda(structure, params, t, G):
@@ -286,8 +397,8 @@ def kernel_matrix_grad_cuda(structure, params, t, G):
     (n_params,) tensor (the jitter excluded), for the same arguments as
     :func:`kernel_matrix_cuda` and an (N, N) adjoint ``G`` in t's dtype on
     t's device.  Launches two kernels on the current stream (the
-    per-tile partial sums and their fixed-order total) and does not
-    synchronise."""
+    per-block partial sums and their fixed-order total) and does not
+    synchronise; the same input gives the same bits on one card."""
     _check(structure, params, t)
     n = t.shape[0]
     if (not isinstance(G, torch.Tensor) or G.device != t.device

@@ -17,7 +17,9 @@ kernel supports goes to :mod:`gpyrn_tpu_torch.ops.cuda_kernels` — the
 kernel for a CUDA tensor, at every N and in float32 and float64, and its
 plain twin for a CPU tensor.  Any other structure (WhiteNoise, the
 derivative kernels, the non-stationary kernels) takes the plain formula
-on every device, exactly as in the JAX package.
+on every device, exactly as in the JAX package.  :func:`kernel_matrix_stack`
+is the same dispatch for a list of structures: when the kernel supports
+them all, it writes them into one ``(B, N, N)`` tensor without a copy.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from gpyrn_tpu_torch.ops import kernels as _k
 
 __all__ = [
     "TRAIN_NUGGET", "PREDICT_NUGGET", "F32_JITTER_MULT",
-    "kernel_matrix", "kernel_matrix_plain", "kernel_diag",
+    "kernel_matrix", "kernel_matrix_stack", "kernel_matrix_plain",
+    "kernel_diag",
     "cross_kernel_matrix", "psd_jitter",
 ]
 
@@ -82,6 +85,25 @@ def kernel_matrix(structure, params, t, nugget=TRAIN_NUGGET):
     jitter = torch.maximum(F32_JITTER_MULT * eps * torch.trace(K),
                            K.new_full((), nugget))
     return K + jitter * _eye(t)
+
+
+def kernel_matrix_stack(structures, params, t, nugget=TRAIN_NUGGET):
+    """The ``(B, N, N)`` stack of :func:`kernel_matrix` over a list of
+    structures and their parameters.  When the CUDA kernel supports every
+    structure, a CUDA tensor goes through the kernel straight into one
+    buffer and a CPU tensor through its plain version; a list that holds
+    any other structure is built matrix by matrix and stacked."""
+    structures = tuple(structures)
+    if all(_ck.cuda_supported(s) for s in structures):
+        params = [_params(p, t) for p in params]
+        if t.is_cuda:
+            return _ck.kernel_matrix_stack_cuda(
+                structures, [p.contiguous() for p in params], t.contiguous(),
+                nugget, F32_JITTER_MULT)
+        return _ck.kernel_matrix_stack_ref(structures, params, t, nugget,
+                                           F32_JITTER_MULT)
+    return torch.stack([kernel_matrix(s, p, t, nugget)
+                        for s, p in zip(structures, params)])
 
 
 def kernel_matrix_plain(structure, params, t, nugget=TRAIN_NUGGET):

@@ -1,6 +1,8 @@
 """gpyrn_tpu_torch on the card: the CUDA kernel-matrix kernel (B1) and its
-backward (B1′) against their plain twins, and the main path and the
-gradient path on the card against the same on the CPU.
+backward (B1′) against their plain twins (ragged sizes, exact symmetry,
+a non-symmetric adjoint, the same bits from run to run), the stacked
+function and its backward, and the main path and the gradient path on the
+card against the same on the CPU.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode).  The file imports no jax, so the card's machine runs it
@@ -37,6 +39,10 @@ CASES = [
 ]
 
 
+# sizes around the tile (32) and the 16-byte groups (2 doubles, 4 floats)
+RAGGED_NS = (1, 2, 3, 4, 31, 32, 33, 34, 255, 256, 257)
+
+
 def _times(N):
     return np.sort(np.random.default_rng(N).uniform(0, 100, N))
 
@@ -55,7 +61,7 @@ def test_kernel_matches_twin(structure, pars, dtype, cuda):
     """f64: rtol 1e-12, atol 1e-14·k(0); f32: rtol 2e-6, atol 1e-6·k(0)
     (float32 transcendentals may differ by an ulp or two)."""
     rtol, atol = (1e-12, 1e-14) if dtype == torch.float64 else (2e-6, 1e-6)
-    for N in (1, 3, 31, 33, 255, 257, 1000):
+    for N in RAGGED_NS + (1000,):
         t = torch.tensor(_times(N), dtype=dtype, device=cuda)
         p = torch.tensor(pars, dtype=dtype, device=cuda)
         k0 = abs(float(tk.evaluate(structure, p, r=torch.zeros(
@@ -67,6 +73,8 @@ def test_kernel_matches_twin(structure, pars, dtype, cuda):
             ref = ck.kernel_matrix_ref(structure, p, t, 1e-6, mult)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, ref, rtol=rtol, atol=atol * k0)
+            # each lag is computed once and stored at (i, j) and (j, i)
+            assert torch.equal(got, got.T)
 
 
 @pytest.mark.cuda
@@ -110,7 +118,7 @@ def test_grad_kernel_matches_twin(structure, pars, dtype, cuda):
     (f32) of Σ |G| |∂k/∂θ| per parameter, since the two sum in other
     orders and take the derivatives by other operations."""
     tol = 1e-12 if dtype == torch.float64 else 1e-4
-    for N in (1, 3, 33, 257, 1000):
+    for N in RAGGED_NS + (1000,):
         times = _times(N)
         if N > 5:
             times[5] = times[4]
@@ -127,6 +135,108 @@ def test_grad_kernel_matches_twin(structure, pars, dtype, cuda):
         assert bool(torch.isfinite(got).all())
         assert bool(((got - ref).abs() <= tol * scale).all()), \
             (structure, N, got, ref)
+        # no atomics: a second call gives the same bits
+        assert torch.equal(got, ck.kernel_matrix_grad_cuda(structure, p, t, G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernel_takes_each_side_of_the_adjoint(dtype, cuda):
+    """G is not symmetric: an adjoint that is 0 below the diagonal, and one
+    that is 0 above it, each give their own contraction (the kernel weighs
+    a lag with G[i, j] + G[j, i], it does not assume them equal)."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    structure, pars = ("QP",), (1.1, 20.0, 13.0, 0.6)
+    for N in (33, 100, 257):
+        t = torch.tensor(_times(N), dtype=dtype, device=cuda)
+        p = torch.tensor(pars, dtype=dtype, device=cuda)
+        G = torch.tensor(np.random.default_rng(N).standard_normal((N, N)),
+                         dtype=dtype, device=cuda)
+        for part in (torch.triu(G, 1), torch.tril(G, -1), G):
+            got = ck.kernel_matrix_grad_cuda(structure, p, t, part)
+            ref = ck.kernel_matrix_grad_ref(structure, p, t, part)
+            scale = _abs_contraction(structure, p, t, G)
+            assert bool(((got - ref).abs() <= tol * scale).all()), (N, got,
+                                                                   ref)
+
+
+@pytest.mark.cuda
+def test_kernels_take_an_unaligned_buffer(cuda):
+    """A matrix whose first byte is not on a 16-byte boundary takes the
+    element-by-element path and gives the same values."""
+    N = 64
+    t = torch.tensor(_times(N), dtype=torch.float64, device=cuda)
+    p = torch.tensor([1.1, 20.0, 13.0, 0.6], dtype=torch.float64, device=cuda)
+    store = torch.tensor(np.random.default_rng(2).standard_normal(N * N + 1),
+                         dtype=torch.float64, device=cuda)
+    G = store[1:].view(N, N)
+    assert G.data_ptr() % 16 == 8 and G.is_contiguous()
+    torch.testing.assert_close(
+        ck.kernel_matrix_grad_cuda(("QP",), p, t, G),
+        ck.kernel_matrix_grad_cuda(("QP",), p, t, G.clone()),
+        rtol=1e-13, atol=0)
+
+
+STACK = [(("QP",), (1.1, 20.0, 13.0, 0.6)), (("SE",), (1.0, 30.0)),
+         (("SE",), (1.05, 30.0)), (("SE",), (1.1, 30.0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stack_matches_its_plain_version(dtype, cuda):
+    """kernel_matrix_stack_cuda: one (B, N, N) buffer, B launches of B1, B
+    of B1′ in the backward; values equal the single-matrix wrapper's to the
+    bit, gradients agree with autograd of the plain version (float64 1e-11,
+    float32 1e-3 of the largest entry: the jitter's trace term is summed in
+    another order)."""
+    structures = [s for s, _ in STACK]
+    for N in (33, 256, 1000):
+        t = torch.tensor(_times(N), dtype=dtype, device=cuda)
+        G = torch.tensor(
+            np.random.default_rng(N).standard_normal((len(STACK), N, N)),
+            dtype=dtype, device=cuda)
+        grads = {}
+        for name, fn in (("cuda", ck.kernel_matrix_stack_cuda),
+                         ("plain", ck.kernel_matrix_stack_ref)):
+            params = [torch.tensor(pars, dtype=dtype, device=cuda,
+                                   requires_grad=True) for _, pars in STACK]
+            before = dict(ck.LAUNCHES)
+            K = fn(structures, params, t, 1e-6, tlin.F32_JITTER_MULT)
+            grads[name] = torch.autograd.grad(K, params, grad_outputs=G)
+            launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+            expected = len(STACK) if name == "cuda" else 0
+            assert launched == {"kernel_matrix": expected,
+                                "kernel_matrix_grad": expected}
+            if name == "cuda":
+                assert K.shape == (len(STACK), N, N) and K.is_contiguous()
+                for b, (s, p) in enumerate(zip(structures, params)):
+                    assert torch.equal(K[b], ck.kernel_matrix_cuda(
+                        s, p.detach(), t, 1e-6, tlin.F32_JITTER_MULT))
+        tol = 1e-11 if dtype == torch.float64 else 1e-3
+        for g, g_ref in zip(grads["cuda"], grads["plain"]):
+            assert float((g - g_ref).abs().max()) <= \
+                tol * float(g_ref.abs().max()), (N, g, g_ref)
+
+
+@pytest.mark.cuda
+def test_linalg_stack_dispatch(cuda):
+    """ops/linalg.kernel_matrix_stack: the stacked function when the kernel
+    supports every structure, matrix by matrix when one is not."""
+    t = torch.tensor(_times(64), dtype=torch.float64, device=cuda)
+    structures = [s for s, _ in STACK]
+    params = [torch.tensor(pars, dtype=torch.float64, device=cuda)
+              for _, pars in STACK]
+    before = ck.LAUNCHES["kernel_matrix"]
+    K = tlin.kernel_matrix_stack(structures, params, t)
+    assert ck.LAUNCHES["kernel_matrix"] == before + 4
+    for b in range(4):
+        assert torch.equal(K[b], tlin.kernel_matrix(structures[b], params[b],
+                                                    t))
+    mixed = tlin.kernel_matrix_stack(
+        structures[:2] + [("WN",)],
+        params[:2] + [torch.tensor([0.3], dtype=torch.float64, device=cuda)],
+        t)
+    assert mixed.shape == (3, 64, 64) and torch.equal(mixed[:2], K[:2])
 
 
 @pytest.mark.cuda

@@ -227,13 +227,121 @@ def test_cuda_source_tables_match_python():
     for name in ("MAX_OPS", "MAX_STACK", "MAX_PARAMS"):
         value = re.search(rf"#define {name} (\d+)", src).group(1)
         assert int(value) == getattr(ck, name), name
-    for name in ("TILE_X", "TILE_Y"):     # B1′'s partial rows, one per tile
-        value = re.search(rf"#define {name} (\d+)", src).group(1)
-        assert int(value) == ck.TILE, name
+    # the tile both grids are sized from
+    assert int(re.search(r"#define TILE (\d+)", src).group(1)) == ck.TILE
+    # the most parameters of a leaf: the kernels' register arrays
+    most = max(tk.n_params((tag,)) for tag in ck._LEAVES)
+    assert int(re.search(r"#define LEAF_PARAMS (\d+)", src).group(1)) == most
+    assert int(re.search(r"#define N_OPCODES (\d+)", src).group(1)) == \
+        len(ck.OPCODES)
+    # every leaf has its single-leaf kernel instance
+    listed = re.search(r"#define FOR_EACH_LEAF\(X\)(.*?)\n\n", src,
+                       re.DOTALL).group(1)
+    assert set(re.findall(r"X\(OP_(\w+)\)", listed)) == set(ck._LEAVES)
     # every leaf op has a case in the kernel's switch
     for name in expected:
         if name not in ("ADD", "MUL"):
             assert f"case OP_{name}:" in src, name
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 4096, 100000])
+def test_grid_sizes(n):
+    """B1 runs one block per tile pair; B1′'s grid, which is also the
+    number of rows of its partial buffer, is capped per SM and depends on
+    n and the card's SM count only."""
+    tiles = -(-n // ck.TILE)
+    pairs = tiles * (tiles + 1) // 2
+    assert ck.tile_pairs(n) == pairs
+    if tiles <= 200:
+        assert pairs == len([(i, j) for i in range(tiles)
+                             for j in range(i + 1)])
+    assert ck.forward_blocks(n) == pairs
+    for sms in (1, 108, 132):
+        blocks = ck.grad_blocks(n, sms)
+        assert blocks == min(pairs, ck.GRAD_BLOCKS_PER_SM * sms)
+        assert 1 <= blocks <= pairs
+    # the largest matrix the launcher takes keeps the grid inside an int
+    assert ck.tile_pairs(65535 * ck.TILE) < 2 ** 31
+
+
+def test_ptxas_report_is_parsed():
+    from gpyrn_tpu_torch.ops import _build
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z25kernel_matrix_grad_kernelIdLi5EEvPKT_S2_S2_PS0_iib7Program' for 'sm_90a'
+ptxas info    : Function properties for _Z25kernel_matrix_grad_kernelIdLi5EEvPKT_S2_S2_PS0_iib7Program
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 1 barriers, 13568 bytes smem
+ptxas info    : Compile time = 812.000 ms
+ptxas info    : Compiling entry function '_Z20kernel_matrix_kernelIfLin2EEvPKT_S2_S2_PS0_iib7Program' for 'sm_90a'
+ptxas info    : Function properties for _Z20kernel_matrix_kernelIfLin2EEvPKT_S2_S2_PS0_iib7Program
+    96 bytes stack frame, 24 bytes spill stores, 52 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+"""
+    usage = _build.resource_usage(log)
+    assert usage == {
+        "_Z25kernel_matrix_grad_kernelIdLi5EEvPKT_S2_S2_PS0_iib7Program":
+            {"registers": 62, "stack_frame": 0, "spill_stores": 0,
+             "spill_loads": 0},
+        "_Z20kernel_matrix_kernelIfLin2EEvPKT_S2_S2_PS0_iib7Program":
+            {"registers": 32, "stack_frame": 96, "spill_stores": 24,
+             "spill_loads": 52}}
+
+
+STACK_CASES = {
+    "supported": [(("QP",), (1.1, 20.0, 13.0, 0.6)), (("SE",), (1.0, 30.0)),
+                  (("SE",), (1.05, 30.0)),
+                  (("+", ("SE",), ("M32",)), (1.0, 8.0, 0.5, 3.0))],
+    "with an unsupported structure": [
+        (("QP",), (1.1, 20.0, 13.0, 0.6)), (("WN",), (0.4,)),
+        (("+", ("SE",), ("LIN",)), (1.0, 8.0, 0.5)),
+        (("HP", 3), (3.0, 1.0, 9.0, 0.8))],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("cases", list(STACK_CASES))
+def test_linalg_stack_equals_the_matrices_one_by_one(cases, dtype):
+    """linalg.kernel_matrix_stack on a CPU tensor: exactly the per-matrix
+    kernel_matrix, stacked, and the same gradient (1e-12 of the largest
+    entry in float64, 1e-5 in float32), whether or not the CUDA kernel
+    supports every structure of the list."""
+    structures = [s for s, _ in STACK_CASES[cases]]
+    t = torch.tensor(_times(40), dtype=dtype)
+    G = torch.tensor(np.random.default_rng(3).standard_normal(
+        (len(structures), 40, 40)), dtype=dtype)
+
+    def run(build):
+        params = [torch.tensor(pars, dtype=dtype, requires_grad=True)
+                  for _, pars in STACK_CASES[cases]]
+        K = build(params)
+        return K.detach(), torch.autograd.grad(K, params, grad_outputs=G)
+
+    before = dict(ck.LAUNCHES)
+    for nugget in (tlin.TRAIN_NUGGET, tlin.PREDICT_NUGGET):
+        K, g = run(lambda ps: tlin.kernel_matrix_stack(structures, ps, t,
+                                                       nugget))
+        K_ref, g_ref = run(lambda ps: torch.stack(
+            [tlin.kernel_matrix(s, p, t, nugget)
+             for s, p in zip(structures, ps)]))
+        assert K.shape == (len(structures), 40, 40) and K.dtype == dtype
+        assert torch.equal(K, K_ref)
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        for a, b in zip(g, g_ref):
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    assert ck.LAUNCHES == before                   # no launch on the CPU
+
+
+def test_stack_wrapper_refuses_what_it_does_not_take():
+    t = _f64(_times(10))
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.kernel_matrix_stack_cuda([("SE",)], [_f64([1.0, 2.0])], t, 1e-6,
+                                    4.0)
+    with pytest.raises(ValueError, match="one parameter tensor"):
+        ck.kernel_matrix_stack_cuda([("SE",), ("SE",)], [_f64([1.0, 2.0])],
+                                    t, 1e-6, 4.0)
+    with pytest.raises(ValueError, match="at least one"):
+        ck.kernel_matrix_stack_cuda([], [], t, 1e-6, 4.0)
 
 
 def test_wrapper_refuses_cpu_tensors():

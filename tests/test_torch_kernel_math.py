@@ -1,18 +1,24 @@
 """The arithmetic of the CUDA kernels B1 and B1′, built for the host.
 
-``csrc/kernel_matrix.cu`` compiles its element math (``eval_program``,
-``leaf_grad``, ``element_grad``) as plain C++ when it is not compiled by
-nvcc.  Here the host's C++ compiler builds that math into a small library
-with a loop over the elements in place of the kernels' tiles, and both
-kernels' formulas are held against the plain PyTorch versions on the CPU:
+``csrc/kernel_matrix.cu`` compiles its element math (``leaf_consts``,
+``leaf``, ``leaf_vd``, ``program_value``, ``program_grad``) and its
+tile-pair index map as plain C++ when it is not compiled by nvcc.  Here the
+host's C++ compiler builds them into a small library with loops over the
+elements in place of the kernels' tiles, and both kernels' formulas are
+held against the plain PyTorch versions on the CPU:
 
 * forward: ``k(t_i − t_j)`` against the registry formula, max error over
   max |K| ≤ 1e-13 in float64, 1e-6 in float32 (the host's libm against
-  torch's exp / sin / pow);
-* gradient: ``Σ G ∂k/∂θ`` against ``kernel_matrix_grad_ref`` (autograd),
-  |difference| ≤ 1e-12 (float64) or 1e-5 (float32) of ``Σ |G| |∂k/∂θ|``
-  per parameter: the hand-derived derivatives take other operations than
-  autograd's chain rule, and the sums run in another order.
+  torch's exp / sin / pow); the instance the launcher would pick (a single
+  leaf's, the pair's) equals the interpreter bit for bit;
+* gradient: the fused value-and-derivative leaf, as ``Σ G ∂k/∂θ`` against
+  ``kernel_matrix_grad_ref`` (autograd), |difference| ≤ 1e-12 (float64) or
+  1e-5 (float32) of ``Σ |G| |∂k/∂θ|`` per parameter: the hand-derived
+  derivatives take other operations than autograd's chain rule, and the
+  sums run in another order; by the interpreter and by the picked instance;
+* the symmetric walk: each lag once, weighted ``G[i,j] + G[j,i]``, against
+  the two-sided sum, to the same tolerance;
+* the tile-pair index map: every pair I ≥ J exactly once, in order.
 
 The times hold a repeated value, so r = 0 occurs off the diagonal as well
 as on it.  The kernels themselves run only on the card
@@ -44,6 +50,12 @@ CASES = LEAF_CASES + [
 ]
 TOLS = {torch.float64: (1e-13, 1e-12), torch.float32: (1e-6, 1e-5)}
 N = 33
+# how the harness reads the program: by the interpreter, or by the instance
+# the launcher would pick for it (a single leaf's, the pair's)
+INTERPRETER, PICKED = 0, 1
+# how it walks the elements: all of them, or each lag once (i >= j) with
+# the weight G[i, j] + G[j, i]
+TWO_SIDED, SYMMETRIC = 0, 1
 
 HARNESS = r"""
 #include "kernel_matrix.cu"
@@ -62,46 +74,129 @@ static Program program(const int* ops, const int* offs, const int* lhs,
   return p;
 }
 
+// what a block sets up before its element loop
 template <typename T>
-static void matrix(const T* t, const T* par, T* out, int n, const int* ops,
-                   const int* offs, const int* lhs, const int* rhs,
-                   int n_ops) {
+struct Setup {
+  T cst[MAX_OPS * N_CONSTS];
+  T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
+  int off1;
+  Setup(const Program& prog, const T* par, int n_params) {
+    for (int k = 0; k < prog.n_ops; ++k)
+      if (is_leaf_op(prog.op[k]))
+        leaf_consts<T>(prog.op[k], par + prog.off[k], cst + k * N_CONSTS);
+    off1 = prog.n_ops > 1 ? prog.off[1] : 0;
+    for (int m = 0; m < LEAF_PARAMS; ++m) {
+      p0[m] = m < n_params ? par[m] : T(0);
+      p1[m] = off1 + m < n_params ? par[off1 + m] : T(0);
+    }
+    for (int m = 0; m < N_CONSTS; ++m) {
+      c0[m] = cst[m];
+      c1[m] = cst[N_CONSTS + m];
+    }
+  }
+};
+
+template <typename T>
+static void matrix(const T* t, const T* par, T* out, int n, int n_params,
+                   const int* ops, const int* offs, const int* lhs,
+                   const int* rhs, int n_ops, int picked) {
   const Program p = program(ops, offs, lhs, rhs, n_ops);
+  const Setup<T> s(p, par, n_params);
+  const int mode = picked ? program_mode(p) : MODE_ANY;
   for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j)
-      out[i * n + j] = eval_program<T>(p, par, t[i] - t[j]);
+    for (int j = 0; j < n; ++j) {
+      const T r = t[i] - t[j];
+      T v;
+#define ARGS p, s.p0, s.c0, s.p1, s.c1, par, s.cst, r
+#define CASE(OP) case OP: v = program_value<T, OP>(ARGS); break;
+      switch (mode) {
+        FOR_EACH_LEAF(CASE)
+        case MODE_PAIR: v = program_value<T, MODE_PAIR>(ARGS); break;
+        default: v = program_value<T, MODE_ANY>(ARGS); break;
+      }
+#undef CASE
+#undef ARGS
+      out[i * n + j] = v;
+    }
 }
 
 template <typename T>
 static void grad(const T* t, const T* par, const T* G, T* out, int n,
                  int n_params, const int* ops, const int* offs,
-                 const int* lhs, const int* rhs, int n_ops) {
+                 const int* lhs, const int* rhs, int n_ops, int picked,
+                 int symmetric) {
   const Program p = program(ops, offs, lhs, rhs, n_ops);
-  T acc[MAX_PARAMS];
+  const Setup<T> s(p, par, n_params);
+  const int mode = picked ? program_mode(p) : MODE_ANY;
+  T acc0[LEAF_PARAMS], acc1[LEAF_PARAMS], acc[MAX_PARAMS];
+  for (int m = 0; m < LEAF_PARAMS; ++m) acc0[m] = acc1[m] = T(0);
   for (int m = 0; m < MAX_PARAMS; ++m) acc[m] = T(0);
   for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j)
-      element_grad<T>(p, par, t[i] - t[j], G[i * n + j], acc);
-  for (int m = 0; m < n_params; ++m) out[m] = acc[m];
+    for (int j = 0; j < (symmetric ? i + 1 : n); ++j) {
+      const T r = t[i] - t[j];
+      const T g = symmetric && i != j ? G[i * n + j] + G[j * n + i]
+                                      : G[i * n + j];
+#define ARGS p, s.p0, s.p1, par, r, g, acc0, acc1, acc
+#define CASE(OP) case OP: program_grad<T, OP>(ARGS); break;
+      switch (mode) {
+        FOR_EACH_LEAF(CASE)
+        case MODE_PAIR: program_grad<T, MODE_PAIR>(ARGS); break;
+        default: program_grad<T, MODE_ANY>(ARGS); break;
+      }
+#undef CASE
+#undef ARGS
+    }
+  // the sums' places among the parameters, as the kernel's reduction has them
+  if (mode >= OP_C) {
+    for (int m = 0; m < leaf_n_params(mode); ++m) out[m] = acc0[m];
+  } else if (mode == MODE_PAIR) {
+    for (int m = 0; m < leaf_n_params(p.op[0]); ++m) out[m] = acc0[m];
+    for (int m = 0; m < leaf_n_params(p.op[1]); ++m)
+      out[s.off1 + m] = acc1[m];
+  } else {
+    for (int m = 0; m < n_params; ++m) out[m] = acc[m];
+  }
 }
 
 extern "C" {
 void matrix_f64(const double* t, const double* par, double* out, int n,
+                int m, const int* o, const int* f, const int* l,
+                const int* r, int k, int picked) {
+  matrix<double>(t, par, out, n, m, o, f, l, r, k, picked);
+}
+void matrix_f32(const float* t, const float* par, float* out, int n, int m,
                 const int* o, const int* f, const int* l, const int* r,
-                int k) { matrix<double>(t, par, out, n, o, f, l, r, k); }
-void matrix_f32(const float* t, const float* par, float* out, int n,
-                const int* o, const int* f, const int* l, const int* r,
-                int k) { matrix<float>(t, par, out, n, o, f, l, r, k); }
+                int k, int picked) {
+  matrix<float>(t, par, out, n, m, o, f, l, r, k, picked);
+}
 void grad_f64(const double* t, const double* par, const double* G,
               double* out, int n, int m, const int* o, const int* f,
-              const int* l, const int* r, int k) {
-  grad<double>(t, par, G, out, n, m, o, f, l, r, k);
+              const int* l, const int* r, int k, int picked, int symmetric) {
+  grad<double>(t, par, G, out, n, m, o, f, l, r, k, picked, symmetric);
 }
 void grad_f32(const float* t, const float* par, const float* G, float* out,
               int n, int m, const int* o, const int* f, const int* l,
-              const int* r, int k) {
-  grad<float>(t, par, G, out, n, m, o, f, l, r, k);
+              const int* r, int k, int picked, int symmetric) {
+  grad<float>(t, par, G, out, n, m, o, f, l, r, k, picked, symmetric);
 }
+int mode_of(const int* o, const int* f, const int* l, const int* r, int k) {
+  return program_mode(program(o, f, l, r, k));
+}
+// 0 if tile_pair lists the pairs (0,0), (1,0), (1,1), (2,0), ... of a
+// tiles x tiles matrix, each once, over exactly n_tile_pairs indices;
+// else 1 + the first index that is wrong
+long long tile_pairs_wrong_at(int tiles) {
+  long long p = 0;
+  for (int I = 0; I < tiles; ++I)
+    for (int J = 0; J <= I; ++J, ++p) {
+      int i, j;
+      tile_pair(p, &i, &j);
+      if (i != I || j != J) return 1 + p;
+    }
+  return p == n_tile_pairs(tiles) ? 0 : 1 + p;
+}
+void tile_pair_at(long long p, int* I, int* J) { tile_pair(p, I, J); }
+int leaf_n_params_of(int op) { return leaf_n_params(op); }
 }
 """
 
@@ -142,6 +237,21 @@ def _inputs(dtype, n_par):
     return t, G
 
 
+def _code(structure):
+    prog = ck.encode_program(structure)
+    return (_ints(prog.ops), _ints(prog.offsets), _ints(prog.lhs),
+            _ints(prog.rhs), len(prog.ops))
+
+
+def _grad_scale(structure, pars, t, G):
+    """Σ |G| |∂k/∂θ| per parameter, in float64."""
+    t64 = torch.tensor(t, dtype=torch.float64)
+    J = torch.autograd.functional.jacobian(
+        lambda q: tk.evaluate(structure, q, r=t64[:, None] - t64[None, :]),
+        torch.tensor(pars, dtype=torch.float64)).numpy()
+    return np.einsum("ij,ijm->m", np.abs(G.astype(np.float64)), np.abs(J))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("structure,pars", CASES,
@@ -151,26 +261,89 @@ def test_element_math_matches_autograd(structure, pars, dtype, host_lib):
     sfx = "f64" if dtype == torch.float64 else "f32"
     t, G = _inputs(dtype, len(pars))
     par = np.asarray(pars, dtype=t.dtype)
-    prog = ck.encode_program(structure)
-    code = (_ints(prog.ops), _ints(prog.offsets), _ints(prog.lhs),
-            _ints(prog.rhs), len(prog.ops))
-
-    K = np.zeros((N, N), dtype=t.dtype)
-    getattr(host_lib, f"matrix_{sfx}")(_ptr(t), _ptr(par), _ptr(K), N, *code)
+    code = _code(structure)
     tt, pp = torch.tensor(t), torch.tensor(par)
     K_ref = tk.evaluate(structure, pp, r=tt[:, None] - tt[None, :]).numpy()
-    assert np.max(np.abs(K - K_ref)) <= fwd_tol * np.max(np.abs(K_ref))
-
-    g = np.zeros(len(pars), dtype=t.dtype)
-    getattr(host_lib, f"grad_{sfx}")(_ptr(t), _ptr(par), _ptr(G), _ptr(g), N,
-                                     len(pars), *code)
     g_ref = ck.kernel_matrix_grad_ref(structure, pp, tt,
                                       torch.tensor(G)).numpy()
-    t64 = torch.tensor(t, dtype=torch.float64)
-    J = torch.autograd.functional.jacobian(
-        lambda q: tk.evaluate(structure, q, r=t64[:, None] - t64[None, :]),
-        torch.tensor(pars, dtype=torch.float64)).numpy()
-    scale = np.einsum("ij,ijm->m", np.abs(G.astype(np.float64)), np.abs(J))
-    assert np.all(np.isfinite(g))
-    assert np.all(np.abs(g - g_ref) <= grad_tol * scale), \
-        (g, g_ref, np.abs(g - g_ref) / scale)
+    scale = _grad_scale(structure, pars, t, G)
+
+    Ks = {}
+    for how in (INTERPRETER, PICKED):
+        K = np.zeros((N, N), dtype=t.dtype)
+        getattr(host_lib, f"matrix_{sfx}")(_ptr(t), _ptr(par), _ptr(K), N,
+                                           len(pars), *code, how)
+        assert np.max(np.abs(K - K_ref)) <= fwd_tol * np.max(np.abs(K_ref))
+        Ks[how] = K
+        # the fused value-and-derivative leaf, summed over all elements
+        g = np.zeros(len(pars), dtype=t.dtype)
+        getattr(host_lib, f"grad_{sfx}")(_ptr(t), _ptr(par), _ptr(G), _ptr(g),
+                                         N, len(pars), *code, how, TWO_SIDED)
+        assert np.all(np.isfinite(g))
+        assert np.all(np.abs(g - g_ref) <= grad_tol * scale), \
+            (how, g, g_ref, np.abs(g - g_ref) / scale)
+    # the picked instance repeats the interpreter's operations
+    np.testing.assert_array_equal(Ks[PICKED], Ks[INTERPRETER])
+    # every leaf is even in r: K equals its transpose to the bit
+    np.testing.assert_array_equal(Ks[PICKED], Ks[PICKED].T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("structure,pars", CASES,
+                         ids=[str(c[0]) for c in CASES])
+def test_symmetric_pair_sum_matches_two_sided(structure, pars, dtype,
+                                              host_lib):
+    """Each lag once with the weight G[i,j] + G[j,i] (G not symmetric)
+    gives the two-sided sum Σ G ∂k/∂θ."""
+    _, grad_tol = TOLS[dtype]
+    sfx = "f64" if dtype == torch.float64 else "f32"
+    t, G = _inputs(dtype, len(pars))
+    assert np.abs(G - G.T).max() > 0.1
+    par = np.asarray(pars, dtype=t.dtype)
+    code = _code(structure)
+    scale = _grad_scale(structure, pars, t, G)
+    got = {}
+    for walk in (TWO_SIDED, SYMMETRIC):
+        g = np.zeros(len(pars), dtype=t.dtype)
+        getattr(host_lib, f"grad_{sfx}")(_ptr(t), _ptr(par), _ptr(G), _ptr(g),
+                                         N, len(pars), *code, PICKED, walk)
+        got[walk] = g
+    assert np.all(np.abs(got[SYMMETRIC] - got[TWO_SIDED])
+                  <= grad_tol * scale), (got, scale)
+
+
+def test_launcher_picks_the_instance(host_lib):
+    """A single leaf runs its own instance, two leaves joined by + or *
+    the pair's, anything longer the interpreter."""
+    for (tag,), _ in LEAF_CASES:
+        assert host_lib.mode_of(*_code((tag,))) == ck.OPCODES[tag]
+    assert host_lib.mode_of(*_code(("+", ("SE",), ("M32",)))) == -1
+    assert host_lib.mode_of(*_code(("*", ("QP",), ("C",)))) == -1
+    assert host_lib.mode_of(
+        *_code(("+", ("SE",), ("*", ("QP",), ("C",))))) == -2
+    for tag, code in ck.OPCODES.items():
+        n_par = 0 if tag in "+*" else tk.n_params((tag,))
+        assert host_lib.leaf_n_params_of(code) == n_par
+    assert max(tk.n_params((tag,)) for (tag,), _ in LEAF_CASES) == 6
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 32, 128, 2048])
+def test_tile_pair_index_map(tiles, host_lib):
+    """Every tile pair I ≥ J exactly once, in row order."""
+    host_lib.tile_pairs_wrong_at.restype = ctypes.c_longlong
+    assert host_lib.tile_pairs_wrong_at(tiles) == 0
+
+
+def test_tile_pair_index_map_at_the_largest_matrix(host_lib):
+    """The ends of every row near the largest index the launcher takes
+    (65535 tiles a side), where a float square root is off by one."""
+    host_lib.tile_pair_at.argtypes = [ctypes.c_longlong, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+    I, J = ctypes.c_int(), ctypes.c_int()
+    for row in (1, 2, 4095, 4096, 46340, 46341, 65533, 65534):
+        first = row * (row + 1) // 2
+        for p, expected in ((first, (row, 0)), (first - 1, (row - 1, row - 1)),
+                            (first + row, (row, row))):
+            host_lib.tile_pair_at(p, ctypes.byref(I), ctypes.byref(J))
+            assert (I.value, J.value) == expected, p
