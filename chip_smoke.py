@@ -39,7 +39,9 @@ ends non-zero:
    adjoint per case; a second call gives the same bits;
 10. ``kernel_matrix_stack_cuda`` (the lattice of kernel matrices built
     into one buffer) vs its plain version: values and gradients of a
-    QP + 3 × SE list, float64 and float32;
+    QP + 3 × SE list, float64 and float32; and the host's time per call
+    of ``linalg.kernel_matrix_stack`` against the matrix-by-matrix build
+    with ``torch.stack``;
 11. in a fresh process (``chip_smoke.py --profile``): a traced 30-sweep
     gradient call of the headline model, then B1's and B1′'s device times
     against their plain versions' and their bounds.  After some dozens of
@@ -113,10 +115,6 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # once (a transcendental costs the card many more: a lower bound).  Both
 # kernels compute each lag once: N (N + 1) / 2 lags.
 OPS_PER_LAG = {"kernel_matrix": 17, "kernel_matrix_grad": 33}
-# The same kernels' device times (ms; QP, float64, N=1000) before their
-# redesign, by the same method (``_device_ms``) on an NVIDIA H100 80GB
-# HBM3 at 700 W: the ``earlier_ms`` of the kernels' record.
-EARLIER_MS = {"kernel_matrix": 0.01439, "kernel_matrix_grad": 0.03079}
 # the single-leaf kernel instances the two models run (op codes of
 # ``cuda_kernels.OPCODES``)
 MAIN_PATH_LEAVES = ("QP", "SE", "P", "M52")
@@ -388,6 +386,60 @@ def phase_stack(torch, ck, lin):
               f"{float((K - R).abs().max()):.3e} at N={N_MAIN}), gradients "
               f"worst max|Δg|/max|g| = {worst:.3e} (limit {tol}), "
               f"{B} launches of each kernel per call", flush=True)
+
+
+def _host_ms(torch, fn, reps):
+    """(ms the host takes to enqueue one call of ``fn``, ms per call until
+    the card has finished), over ``reps`` calls after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    done = time.perf_counter() - t0
+    return 1e3 * enqueued / reps, 1e3 * done / reps
+
+
+def host_cost_stack(torch, lin):
+    """What the host pays per lattice of the headline model (QP + 3 × SE,
+    N=1000, float64, parameters that require grad): one call of
+    ``linalg.kernel_matrix_stack`` against ``linalg.kernel_matrix`` per
+    matrix and ``torch.stack``; forward alone, and forward with backward.
+    Order: stack, per matrix, per matrix, stack."""
+    structures = [("QP",)] + [("SE",)] * 3
+    pars = [(1.0, 30.0, 20.0, 0.7)] + [(1.0 + 0.05 * k, 30.0)
+                                       for k in range(3)]
+    rng = np.random.default_rng(N_MAIN)
+    t = torch.tensor(np.sort(rng.uniform(0, 100, N_MAIN)),
+                     dtype=torch.float64, device="cuda")
+    G = torch.tensor(rng.standard_normal((len(pars), N_MAIN, N_MAIN)),
+                     dtype=torch.float64, device="cuda")
+    params = [torch.tensor(q, dtype=torch.float64, device="cuda",
+                           requires_grad=True) for q in pars]
+
+    def stacked():
+        return lin.kernel_matrix_stack(structures, params, t)
+
+    def per_matrix():
+        return torch.stack([lin.kernel_matrix(s, q, t)
+                            for s, q in zip(structures, params)])
+
+    for what, wrap in (
+            ("forward", lambda build: build),
+            ("forward and backward", lambda build: lambda: torch.autograd.grad(
+                build(), params, grad_outputs=G))):
+        runs = [_host_ms(torch, wrap(build), 300)
+                for build in (stacked, per_matrix, per_matrix, stacked)]
+        (s_a, p_a, p_b, s_b) = runs
+        print(f"host cost of the lattice, {what}, QP + 3 x SE, N={N_MAIN}, "
+              f"float64, 300 calls, ms per call enqueued (until the card is "
+              f"done): kernel_matrix_stack {s_a[0]:.4f} ({s_a[1]:.4f}) and "
+              f"{s_b[0]:.4f} ({s_b[1]:.4f}); per matrix and torch.stack "
+              f"{p_a[0]:.4f} ({p_a[1]:.4f}) and {p_b[0]:.4f} ({p_b[1]:.4f})",
+              flush=True)
 
 
 def phase_kernels(torch, ck, lin):
@@ -942,6 +994,7 @@ def main():
     print("== phase 10: the stacked kernel matrices vs the plain version",
           flush=True)
     phase_stack(torch, ck, lin)
+    host_cost_stack(torch, lin)
 
     print("== phase 11: a traced gradient call and the kernels' times, in "
           "a fresh process", flush=True)
@@ -967,7 +1020,7 @@ def main():
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",
             "replaces": "gpyrn_tpu/ops/pallas_kernels.py:122",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "earlier_ms": EARLIER_MS[kname], **rec})
+            **rec})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

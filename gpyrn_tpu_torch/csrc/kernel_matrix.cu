@@ -845,9 +845,9 @@ __device__ __forceinline__ void load_times(const T* __restrict__ t, int n,
   }
 }
 
-// B1.  Block b takes the tile pairs b, b + gridDim.x, ...: the values of
-// tile (I, J) go to the matrix along their rows and, for I > J, through
-// `tile` to the mirrored tile (J, I) along its rows.
+// B1.  Block b takes tile pair b (the grid is one block per pair): the
+// values of tile (I, J) go to the matrix along their rows and, for I > J,
+// through `tile` to the mirrored tile (J, I) along its rows.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
 kernel_matrix_kernel(const T* __restrict__ t, const T* __restrict__ params,
@@ -889,42 +889,36 @@ kernel_matrix_kernel(const T* __restrict__ t, const T* __restrict__ params,
   const T jit = jitter[0];
   const int cx = (tid % S::THREADS_PER_ROW) * S::VEC;  // first column
   const int ry = tid / S::THREADS_PER_ROW;             // row in a pass
-  const int tiles = (n + TILE - 1) / TILE;
-  const long long pairs = n_tile_pairs(tiles);
-
-  for (long long pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
-    int I, J;
-    tile_pair(pair, &I, &J);
-    __syncthreads();  // the last pair's readers are done
-    load_times<T>(t, n, I, J, ti, tj);
+  int I, J;
+  tile_pair(blockIdx.x, &I, &J);
+  load_times<T>(t, n, I, J, ti, tj);
+  __syncthreads();
+#pragma unroll
+  for (int pass = 0; pass < S::PASSES; ++pass) {
+    const int li = ry + pass * S::ROWS_PER_PASS;
+    const int i = I * TILE + li;
+    T v[S::VEC];
+#pragma unroll
+    for (int u = 0; u < S::VEC; ++u) {
+      v[u] = program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                    ti[li] - tj[cx + u]);
+      if (i == J * TILE + cx + u) v[u] = v[u] + jit;
+    }
+    store_group<T>(out, i, J * TILE + cx, v, n, vec);
+    if (I != J) {
+#pragma unroll
+      for (int u = 0; u < S::VEC; ++u) tile[li][cx + u] = v[u];
+    }
+  }
+  if (I != J) {  // the same for the whole block
     __syncthreads();
 #pragma unroll
     for (int pass = 0; pass < S::PASSES; ++pass) {
-      const int li = ry + pass * S::ROWS_PER_PASS;
-      const int i = I * TILE + li;
+      const int lj = ry + pass * S::ROWS_PER_PASS;
       T v[S::VEC];
 #pragma unroll
-      for (int u = 0; u < S::VEC; ++u) {
-        v[u] = program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
-                                      ti[li] - tj[cx + u]);
-        if (i == J * TILE + cx + u) v[u] = v[u] + jit;
-      }
-      store_group<T>(out, i, J * TILE + cx, v, n, vec);
-      if (I != J) {
-#pragma unroll
-        for (int u = 0; u < S::VEC; ++u) tile[li][cx + u] = v[u];
-      }
-    }
-    if (I != J) {  // the same for the whole block
-      __syncthreads();
-#pragma unroll
-      for (int pass = 0; pass < S::PASSES; ++pass) {
-        const int lj = ry + pass * S::ROWS_PER_PASS;
-        T v[S::VEC];
-#pragma unroll
-        for (int u = 0; u < S::VEC; ++u) v[u] = tile[cx + u][lj];
-        store_group<T>(out, J * TILE + lj, I * TILE + cx, v, n, vec);
-      }
+      for (int u = 0; u < S::VEC; ++u) v[u] = tile[cx + u][lj];
+      store_group<T>(out, J * TILE + lj, I * TILE + cx, v, n, vec);
     }
   }
 }
@@ -1070,15 +1064,12 @@ kernel_matrix_grad_sum(const T* __restrict__ partial, T* __restrict__ out,
 }
 
 // Checks the arguments every launch shares and fills the program; returns
-// a CUDA error code (0 when all is well).  n_blocks is the grid: at least
-// one block, at most one per tile pair.
-static int make_program(int n, int n_params, int n_blocks, const int* ops,
-                        const int* offs, const int* lhs, const int* rhs,
-                        int n_ops, Program* prog) {
+// a CUDA error code (0 when all is well).
+static int make_program(int n, int n_params, const int* ops, const int* offs,
+                        const int* lhs, const int* rhs, int n_ops,
+                        Program* prog) {
   if (n < 1 || (n + TILE - 1) / TILE > 65535 || n_params < 1 ||
-      n_params > MAX_PARAMS || n_ops < 1 || n_ops > MAX_OPS ||
-      n_blocks < 1 ||
-      (long long)n_blocks > n_tile_pairs((n + TILE - 1) / TILE)) {
+      n_params > MAX_PARAMS || n_ops < 1 || n_ops > MAX_OPS) {
     return (int)cudaErrorInvalidValue;
   }
   prog->n_ops = n_ops;
@@ -1108,19 +1099,20 @@ static bool aligned16(const T* a, int n) {
 
 template <typename T>
 static int launch(int device, const T* t, const T* params, const T* jitter,
-                  T* out, int n, int n_params, int n_blocks, const int* ops,
+                  T* out, int n, int n_params, const int* ops,
                   const int* offs, const int* lhs, const int* rhs, int n_ops,
                   void* stream) {
   Program prog;
-  int bad = make_program(n, n_params, n_blocks, ops, offs, lhs, rhs, n_ops,
-                         &prog);
+  int bad = make_program(n, n_params, ops, offs, lhs, rhs, n_ops, &prog);
   if (bad) return bad;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool vec = aligned16(out, n);
+  // one block per tile pair: at most 65535 * 65536 / 2 < 2^31
+  const unsigned grid = (unsigned)n_tile_pairs((n + TILE - 1) / TILE);
   cudaStream_t s = (cudaStream_t)stream;
 #define RUN(MODE)                                                  \
-  kernel_matrix_kernel<T, MODE><<<n_blocks, THREADS, 0, s>>>(      \
+  kernel_matrix_kernel<T, MODE><<<grid, THREADS, 0, s>>>(          \
       t, params, jitter, out, n, n_params, vec, prog)
 #define CASE(OP) case OP: RUN(OP); break;
   switch (program_mode(prog)) {
@@ -1133,6 +1125,7 @@ static int launch(int device, const T* t, const T* params, const T* jitter,
   return (int)cudaGetLastError();
 }
 
+// n_blocks is the grid, at least one block and at most one per tile pair;
 // partial holds n_blocks rows of n_params.
 template <typename T>
 static int launch_grad(int device, const T* t, const T* params, const T* G,
@@ -1140,9 +1133,12 @@ static int launch_grad(int device, const T* t, const T* params, const T* G,
                        const int* ops, const int* offs, const int* lhs,
                        const int* rhs, int n_ops, void* stream) {
   Program prog;
-  int bad = make_program(n, n_params, n_blocks, ops, offs, lhs, rhs, n_ops,
-                         &prog);
+  int bad = make_program(n, n_params, ops, offs, lhs, rhs, n_ops, &prog);
   if (bad) return bad;
+  if (n_blocks < 1 ||
+      (long long)n_blocks > n_tile_pairs((n + TILE - 1) / TILE)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool vec = aligned16(G, n);
@@ -1168,22 +1164,22 @@ static int launch_grad(int device, const T* t, const T* params, const T* G,
 extern "C" int gpyrn_kernel_matrix_f64(int device, const double* t,
                                        const double* params,
                                        const double* jitter, double* out,
-                                       int n, int n_params, int n_blocks,
+                                       int n, int n_params,
                                        const int* ops, const int* offs,
                                        const int* lhs, const int* rhs,
                                        int n_ops, void* stream) {
-  return launch<double>(device, t, params, jitter, out, n, n_params, n_blocks,
+  return launch<double>(device, t, params, jitter, out, n, n_params,
                         ops, offs, lhs, rhs, n_ops, stream);
 }
 
 extern "C" int gpyrn_kernel_matrix_f32(int device, const float* t,
                                        const float* params,
                                        const float* jitter, float* out,
-                                       int n, int n_params, int n_blocks,
+                                       int n, int n_params,
                                        const int* ops, const int* offs,
                                        const int* lhs, const int* rhs,
                                        int n_ops, void* stream) {
-  return launch<float>(device, t, params, jitter, out, n, n_params, n_blocks,
+  return launch<float>(device, t, params, jitter, out, n, n_params,
                        ops, offs, lhs, rhs, n_ops, stream);
 }
 

@@ -31,7 +31,7 @@ kernel's parameter derivatives, where the JAX package takes the gradient
 by autodiff through the Pallas kernel.  A few persistent blocks per SM
 (:func:`grad_blocks`) each write one row of partial sums, and a second
 kernel adds the rows in a fixed order: no atomics, the same bits from run
-to run.  ``_KernelMatrix`` joins the two for autograd; the jitter is
+to run.  ``_KernelMatrixStack`` joins the two for autograd; the jitter is
 computed outside it by differentiable tensor ops, so its gradient is
 ``trace(G)`` chained through ``k(0)``.  ``t`` takes no gradient (the JAX
 package differentiates θ only).
@@ -39,10 +39,9 @@ package differentiates θ only).
 :func:`kernel_matrix_stack_cuda` builds the matrices of a list of
 structures straight into one ``(B, N, N)`` tensor (one B1 launch per
 slice, one B1′ launch per slice of the adjoint in the backward), which
-saves the copy of ``torch.stack``.
-
-:func:`kernel_matrix_cuda` launches the kernel on a CUDA tensor and
-raises on anything else.  :func:`kernel_matrix_ref`,
+saves the copy of ``torch.stack``.  :func:`kernel_matrix_cuda` is its
+one-matrix case.  Both launch on a CUDA tensor and raise on anything
+else.  :func:`kernel_matrix_ref`,
 :func:`kernel_matrix_stack_ref` and :func:`kernel_matrix_grad_ref` are the
 plain PyTorch versions: the CPU path runs the first two (and autograd
 through them), and on the card only the tests and ``chip_smoke.py`` call
@@ -51,6 +50,7 @@ them, to compare.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -62,7 +62,7 @@ __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_ref", "kernel_matrix_cuda",
            "kernel_matrix_stack_ref", "kernel_matrix_stack_cuda",
            "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda",
-           "forward_blocks", "grad_blocks", "LAUNCHES",
+           "grad_blocks", "LAUNCHES",
            "reset_launch_counts"]
 
 # Op codes of the postfix program.  Must equal ``enum Op`` in
@@ -78,8 +78,7 @@ MAX_STACK = 8
 MAX_PARAMS = 64
 # Tile of both kernels (csrc TILE), and the cap of B1′'s grid of persistent
 # blocks: 8 per SM, twice what an SM holds at once (4 blocks of 256 threads
-# at 64 registers), which measured faster than 4 at N = 4096 and is every
-# tile pair at N = 1000 (``probe_kernels.py``).
+# at 64 registers); at N = 1000 that is every tile pair.
 TILE = 32
 GRAD_BLOCKS_PER_SM = 8
 
@@ -100,14 +99,9 @@ def reset_launch_counts() -> None:
 
 def tile_pairs(n: int) -> int:
     """The tile pairs (I, J), I ≥ J, both kernels walk for an n × n
-    matrix."""
+    matrix: B1's grid, and the most blocks B1′ takes."""
     tiles = -(-n // TILE)
     return tiles * (tiles + 1) // 2
-
-
-def forward_blocks(n: int) -> int:
-    """B1's grid: one block per tile pair."""
-    return tile_pairs(n)
 
 
 def grad_blocks(n: int, sm_count: int) -> int:
@@ -206,13 +200,22 @@ _SYMBOLS = {torch.float64: ("gpyrn_kernel_matrix_f64",
                             "gpyrn_kernel_matrix_grad_f32")}
 
 
+# The three lookups below are the same on every launch of a fit or a
+# gradient call, so each is made once per process and argument.
+
+def _argtypes(grad):
+    """The C entry points' arguments (a CPU test reads them off the
+    source): device, t, params, jitter | G, [partial,] out, n, n_params,
+    [n_blocks,] ops, offs, lhs, rhs, n_ops, stream."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return ([i, p, p, p] + [p] * (1 + int(grad)) + [i, i] + [i] * int(grad)
+            + [p, p, p, p, i, p])
+
+
+@functools.lru_cache(maxsize=None)
 def _function(dtype, grad=False):
     fn = getattr(_build.load("kernel_matrix"), _SYMBOLS[dtype][int(grad)])
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # device, t, params, jitter | G, [partial,] out, n, n_params, n_blocks,
-    # ops, offs, lhs, rhs, n_ops, stream
-    fn.argtypes = [i, p, p, p] + [p] * (1 + int(grad)) + [i, i, i, p, p, p,
-                                                          p, i, p]
+    fn.argtypes = _argtypes(grad)
     fn.restype = ctypes.c_int
     return fn
 
@@ -221,10 +224,17 @@ def _ints(values):
     return (ctypes.c_int * len(values))(*values)
 
 
+@functools.lru_cache(maxsize=256)
 def _program_args(structure):
     prog = encode_program(structure)
     return (_ints(prog.ops), _ints(prog.offsets), _ints(prog.lhs),
             _ints(prog.rhs), len(prog.ops))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
 
 
 def _check(structure, params, t):
@@ -258,8 +268,7 @@ def _launch(structure, params, jitter, t, out):
     n = t.shape[0]
     err = _function(t.dtype)(
         t.device.index, t.data_ptr(), params.data_ptr(), jitter.data_ptr(),
-        out.data_ptr(), n, params.shape[0], forward_blocks(n),
-        *_program_args(structure),
+        out.data_ptr(), n, params.shape[0], *_program_args(structure),
         torch.cuda.current_stream(t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kernel_matrix launch failed with CUDA "
@@ -271,8 +280,7 @@ def _launch_grad(structure, params, t, G):
     """B1′ on the card: the (n_params,) contraction of a contiguous (N, N)
     adjoint G with dK/dparams."""
     n, n_par = t.shape[0], params.shape[0]
-    n_blocks = grad_blocks(n, torch.cuda.get_device_properties(
-        t.device).multi_processor_count)
+    n_blocks = grad_blocks(n, _sm_count(t.device.index))
     partial = torch.empty((n_blocks, n_par), dtype=t.dtype, device=t.device)
     out = torch.empty((n_par,), dtype=t.dtype, device=t.device)
     err = _function(t.dtype, grad=True)(
@@ -285,30 +293,6 @@ def _launch_grad(structure, params, t, G):
                            f"error {err} (N={n}, {t.dtype})")
     LAUNCHES["kernel_matrix_grad"] += 1
     return out
-
-
-class _KernelMatrix(torch.autograd.Function):
-    """K = kernel(t; params) + jitter·I by B1, its backward by B1′; the
-    jitter (a 0-d tensor) gets trace(G)."""
-
-    @staticmethod
-    def forward(ctx, params, jitter, t, structure):
-        n = t.shape[0]
-        out = torch.empty((n, n), dtype=t.dtype, device=t.device)
-        _launch(structure, params, jitter, t, out)
-        ctx.save_for_backward(params, t)
-        ctx.structure = structure
-        return out
-
-    @staticmethod
-    def backward(ctx, G):
-        params, t = ctx.saved_tensors
-        g_params = g_jitter = None
-        if ctx.needs_input_grad[0]:
-            g_params = _launch_grad(ctx.structure, params, t, G.contiguous())
-        if ctx.needs_input_grad[1]:
-            g_jitter = torch.diagonal(G).sum()
-        return g_params, g_jitter, None, None
 
 
 class _KernelMatrixStack(torch.autograd.Function):
@@ -362,7 +346,7 @@ def kernel_matrix_cuda(structure, params, t, nugget, jitter_mult):
     _check(structure, params, t)
     _check_no_grad(t)
     jitter = _jitter(structure, params, t, float(nugget), float(jitter_mult))
-    return _KernelMatrix.apply(params, jitter, t, structure)
+    return _KernelMatrixStack.apply(t, (structure,), params, jitter)[0]
 
 
 def kernel_matrix_stack_ref(structures, params, t, nugget, jitter_mult):

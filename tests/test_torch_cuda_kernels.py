@@ -255,13 +255,31 @@ def test_grid_sizes(n):
     if tiles <= 200:
         assert pairs == len([(i, j) for i in range(tiles)
                              for j in range(i + 1)])
-    assert ck.forward_blocks(n) == pairs
     for sms in (1, 108, 132):
         blocks = ck.grad_blocks(n, sms)
         assert blocks == min(pairs, ck.GRAD_BLOCKS_PER_SM * sms)
         assert 1 <= blocks <= pairs
     # the largest matrix the launcher takes keeps the grid inside an int
     assert ck.tile_pairs(65535 * ck.TILE) < 2 ** 31
+
+
+def test_c_entry_points_take_the_wrappers_arguments():
+    """Each ``extern "C"`` entry point of the source declares the argument
+    types the wrapper passes (pointers and ints, in order), and B1's grid
+    is the launcher's own: one block per tile pair, no grid argument."""
+    import ctypes
+    src = CU_SOURCE.read_text()
+    for dtype, (fwd, grad) in ck._SYMBOLS.items():
+        for symbol, is_grad in ((fwd, False), (grad, True)):
+            decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src,
+                             re.DOTALL).group(1)
+            kinds = [ctypes.c_void_p if "*" in arg else ctypes.c_int
+                     for arg in decl.split(",")]
+            assert kinds == ck._argtypes(is_grad), symbol
+            assert ("n_blocks" in decl) == is_grad, symbol
+    assert re.search(r"kernel_matrix_kernel<T, MODE><<<grid,", src)
+    assert re.search(r"grid = \(unsigned\)n_tile_pairs\(\(n \+ TILE - 1\) "
+                     r"/ TILE\)", src)
 
 
 def test_ptxas_report_is_parsed():
