@@ -42,16 +42,38 @@ ends non-zero:
     QP + 3 × SE list, float64 and float32; and the host's time per call
     of ``linalg.kernel_matrix_stack`` against the matrix-by-matrix build
     with ``torch.stack``;
-11. in a fresh process (``chip_smoke.py --profile``): a traced 30-sweep
-    gradient call of the headline model, then B1's and B1′'s device times
+11. the mixed-precision fit, headline model at N=1000:
+    ``ELBOcalc(precision='mixed')`` with its defaults (the float32
+    merit-stall fit on the exact-nugget matrices, three float64 polish
+    sweeps) and with ``refine_sweeps='converge'``, on the card against
+    the JAX package's cached values and against the port on the CPU;
+    sweeps and wall of the bulk and of the polish, non-finite merits;
+12. the mixed fit at full width, the headline model at N=5000 (the JAX
+    package's north-star size): B1 in float32 with multiplier 0 against
+    its plain version at this N, the stall rule fires before
+    ``max_iter``, one further float64 sweep hardly moves the ELBO, and
+    the result is not below the float64 reference-rule fit's; ms per
+    sweep, peak memory, non-finite factors;
+13. the implicit gradient of the converged ELBO, headline model, N=1000,
+    float64: ``elbo_grad(method='implicit')`` against the cached JAX
+    value and gradient and against the unrolled gradient started at the
+    fixed point; residuals, pull-backs, launches, wall and peak memory
+    beside the unrolled call's;
+14. three ``optimize_adam(grad='implicit')`` steps of the headline model
+    against the cached optax result;
+15. the flagship model (q=2): ``fit_state`` with a fixed count of sweeps
+    and one implicit call from that state, card against CPU;
+16. in a fresh process (``chip_smoke.py --profile``): a traced 30-sweep
+    gradient call, a traced block of the float32 stall fit and a traced
+    implicit call of the headline model, then B1's and B1′'s device times
     against their plain versions' and their bounds.  After some dozens of
     profiled runs and ~150k traced kernels in one process,
     torch.profiler was seen to lose records (an H100, torch 2.11), so the
     profiled work gets a process of its own.
 
 The launch counts are set to 0 before each path (phases 3–5, phases
-6–7) and read after it.  The last three lines are the kernels' JSON
-record, the card's name and power limit, and
+6–7, phases 11–12, phases 13–15) and read after it.  The last three lines
+are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -81,6 +103,62 @@ STATE_TOL = 1e-7
 # the gradient path: unrolled sweeps per model, Adam steps of the trainer
 GRAD_SWEEPS = {"headline": 30, "flagship": 10}
 ADAM_STEPS = 5
+# the converged-state paths: the polish settings of the mixed fit with
+# refine_sweeps='converge' (a cap that lets the Anderson polish reach the
+# float64 fixed point at N=1000, where the default 80 evaluations may
+# not), the implicit gradient's fit, and the implicit trainer's steps
+CONVERGE = {"refine_tol": 1e-10, "refine_max_sweeps": 400}
+IMPLICIT = {"fit_tol": 1e-12, "fit_max_iter": 2000}
+ADAM_IMPLICIT_STEPS = 3
+# the implicit trainer's adjoint solve is cut to two GMRES(20) cycles: at
+# N=1000 the 1e-10 target lies under the floor float64 leaves, and a solve
+# held to it runs all of its 25 cycles in every step
+ADAM_IMPLICIT = {"adjoint_maxiter": 2, "adjoint_restart": 20}
+# the north-star width of the mixed fit
+N_WIDE = 5000
+# the flagship's converged-state check: sweeps of fit_state (tol 0), and
+# a cut adjoint solve (the state is not a fixed point; card and CPU run
+# the same few Arnoldi steps)
+FLAGSHIP_STATE_SWEEPS = 20
+FLAGSHIP_ADJOINT = {"maxiter": 1, "restart": 8}
+
+# the mixed fit.  With three polish sweeps the float32 bulk decides where
+# the fit stops, and float32 trajectories differ between runtimes (an
+# H100 stopped after 104 float32 sweeps where the CPU and the JAX package
+# took 120, 1.6e-4 apart in the ELBO): the limit is what the JAX
+# package's own tests allow between a mixed fit and the float64 fixed
+# point.  Polished to convergence, every runtime lands on the same
+# float64 fixed point: limits ~100 times the agreement measured on an
+# H100 (ELBO 8.6e-13 against jax, 4.9e-12 against the CPU; state, max-abs
+# / (1 + max): mu 2.4e-6 and 3.9e-6, var 7.1e-8 and 1.4e-7)
+MIXED_POLISH3_RTOL = 1e-3
+MIXED_CONVERGE_RTOL = {"jax": 8e-11, "cpu": 4e-10}
+MIXED_CONVERGE_STATE_TOL = {"mu": 2e-4, "var": 1e-5}
+# at N=5000: one more float64 sweep after the default polish moves the
+# ELBO by less than this (relative; measured 5.1e-4: the stall rule stops
+# the float32 fit well short of the fixed point at this N), and the mixed
+# ELBO is not below the float64 reference-rule fit's by more than this
+# (relative; measured 4% above it)
+WIDE_NEXT_SWEEP_RTOL = 5e-3
+WIDE_BELOW_F64_RTOL = 1e-6
+# the implicit gradient against the JAX package's, ~100 times the
+# agreement measured on an H100 (value 8.9e-15, gradient 2.3e-12 of
+# max |g|; two GMRES, each run to its 1e-10 target).  The residual of
+# the solve as computed afterwards stays at 1.7e-10 of |v| on the card and
+# 1.9e-10 in the JAX package: the floor float64 leaves at N=1000, where
+# |w| is some thousand times |v|
+IMPLICIT_VALUE_RTOL = 5e-13
+IMPLICIT_GRAD_TOL = 2e-10
+IMPLICIT_ADJOINT_TOL = 1e-8
+# ... and against the 30-sweep unrolled gradient started at the same
+# state (measured 1.6e-13 of max |g|: the slow modes of the sweep map
+# hardly reach the hyperparameters' gradient)
+IMPLICIT_UNROLL_TOL = 1e-11
+# the fit tolerance of the call that times the gradient alone from the
+# cached state: 1e-12 lies under the floor the float64 state reaches at
+# N=1000 (1.1e-11), so that every call at it runs all its 2,000 sweeps
+IMPLICIT_WARM_FIT_TOL = 1e-10
+ADAM_IMPLICIT_X_RTOL = 1e-6
 # its tolerances against the JAX package's float64 values on the CPU:
 # relative value; gradient max |Δg| / max |g| and the Adam parameters
 # (relative), each ~100 times the agreement measured on an H100 (7e-12
@@ -857,6 +935,393 @@ def phase_grad_path(torch, pkg, name, oracle, ck):
 
 
 
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _check(name, checks):
+    """Print each (what, ok, detail) and fail on the first that is not
+    ok."""
+    for what, ok, detail in checks:
+        print(f"{name}: {what}: {detail} {'ok' if ok else 'FAILED'}",
+              flush=True)
+    failed = [what for what, ok, _ in checks if not ok]
+    if failed:
+        raise AssertionError(f"{name}: failed: {failed}")
+
+
+def _timed(torch, fn):
+    """(result, seconds) of one call, the card's work included."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _mixed_stages(torch, g):
+    """The two stages of the default mixed fit timed apart: (bulk sweeps,
+    bulk seconds, polish sweeps, polish seconds)."""
+    theta = g._theta()
+    mu0, var0 = g._resolve_mu_var('init', 'init', theta)
+    (mu32, var32, n_bulk, _), dt_bulk = _timed(
+        torch, lambda: g._bulk_fit32(theta, mu0, var0, 10000))
+    (_, _, _, n_polish), dt_polish = _timed(
+        torch, lambda: g._polish64(theta, mu32.double(), var32.double()))
+    return n_bulk, dt_bulk, n_polish, dt_polish
+
+
+def phase_mixed(torch, pkg, oracle, ck):
+    """The mixed fit of the headline model at N=1000 on the card: the
+    defaults, then polished to the float64 fixed point, against the cached
+    JAX values and the port on the CPU."""
+    ref = oracle["mixed"]
+    n_k = 4                                   # q + q·p kernel matrices
+    g = headline_problem(pkg, device="cuda")
+    g.ELBOcalc(precision='mixed', max_iter=8)            # warm-up
+    before = ck.LAUNCHES["kernel_matrix"]
+    (elbo, mu, var, n_iter), wall = _timed(
+        torch, lambda: g.ELBOcalc(precision='mixed'))
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    info = dict(g.mixed_info)
+    n_bulk, dt_bulk, n_polish, dt_polish = _mixed_stages(torch, g)
+    g_cpu = headline_problem(pkg, device="cpu")
+    t0 = time.perf_counter()
+    e_cpu, _, _, it_cpu = g_cpu.ELBOcalc(precision='mixed')
+    dt_cpu = time.perf_counter() - t0
+    print(f"mixed, defaults: ELBO {elbo!r} in {n_iter} sweeps, wall "
+          f"{wall:.3f} s; float32 bulk {info}; stages timed apart: bulk "
+          f"{n_bulk} sweeps {dt_bulk:.3f} s "
+          f"({1e3 * dt_bulk / max(n_bulk, 1):.3f} ms/sweep), polish "
+          f"{n_polish} float64 sweeps {dt_polish:.3f} s "
+          f"({1e3 * dt_polish / n_polish:.3f} ms/sweep); cpu {e_cpu!r} in "
+          f"{it_cpu} sweeps, {dt_cpu:.3f} s; jax {ref['default']['elbo']!r} "
+          f"in {ref['default']['n_iter']} sweeps", flush=True)
+    # the jittered lattice for the merit's prior factors and the
+    # exact-nugget one (multiplier 0) in float32, the jittered one of the
+    # float64 polish
+    _check("mixed, defaults", [
+        ("finite, float64 state",
+         np.isfinite(elbo) and mu.dtype == torch.float64
+         and bool(torch.isfinite(mu).all()) and bool((var > 0).all()),
+         f"{tuple(mu.shape)}"),
+        ("B1 launches (float32 with multiplier 4 and 0, float64)",
+         launched == 3 * n_k, f"{launched} vs {3 * n_k}"),
+        ("the stall rule fired", info["bulk"] == "stall" and info["stalled"]
+         and info["bulk_sweeps"] < 10000, f"{info['bulk_sweeps']} sweeps"),
+        ("non-finite float32 merits", info["nonfinite_merits"] == 0,
+         f"{info['nonfinite_merits']} of {info['blocks']}"),
+        ("state cached", g._mu is mu, "the converged state"),
+        ("ELBO card vs cpu", _rel(elbo, e_cpu) <= MIXED_POLISH3_RTOL,
+         f"rel {_rel(elbo, e_cpu):.3e} (limit {MIXED_POLISH3_RTOL})"),
+        ("ELBO card vs jax",
+         _rel(elbo, ref["default"]["elbo"]) <= MIXED_POLISH3_RTOL,
+         f"rel {_rel(elbo, ref['default']['elbo']):.3e} "
+         f"(limit {MIXED_POLISH3_RTOL})"),
+    ])
+
+    conv = ref["converge"]
+    settings = {k: conv[k] for k in CONVERGE}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        g = headline_problem(pkg, device=device)
+        g.refine_sweeps = 'converge'
+        for key, value in settings.items():
+            setattr(g, key, value)
+        before = ck.LAUNCHES["kernel_matrix"]
+        t0 = time.perf_counter()
+        out = g.ELBOcalc(precision='mixed')
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = (*out, time.perf_counter() - t0, dict(g.mixed_info),
+                        ck.LAUNCHES["kernel_matrix"] - before)
+    e_gpu, mu, var, it_gpu, dt_gpu, info, launched = runs["cuda"]
+    e_cpu, mu_c, var_c, it_cpu, dt_cpu, info_c, _ = runs["cpu"]
+    print(f"mixed, converge {settings}: card {e_gpu!r} in {it_gpu} sweeps "
+          f"({info['bulk_sweeps']} float32 + {info['polish_sweeps']} "
+          f"float64), {dt_gpu:.3f} s; cpu {e_cpu!r} in {it_cpu} sweeps "
+          f"({info_c['bulk_sweeps']} + {info_c['polish_sweeps']}), "
+          f"{dt_cpu:.3f} s; jax {conv['elbo']!r} in {conv['n_iter']}",
+          flush=True)
+    summary = state_summary(mu.cpu().numpy(), var.cpu().numpy(),
+                            conv["stride"])
+    checks = [
+        ("B1 launches", launched == n_k * (2 + info["polish_sweeps"]),
+         f"{launched} vs {n_k} x (2 + {info['polish_sweeps']} polish calls)"),
+        ("the polish converged under its cap",
+         info["polish_sweeps"] <= settings["refine_max_sweeps"],
+         f"{info['polish_sweeps']} sweeps"),
+        ("ELBO card vs jax",
+         _rel(e_gpu, conv["elbo"]) <= MIXED_CONVERGE_RTOL["jax"],
+         f"rel {_rel(e_gpu, conv['elbo']):.3e} (limit "
+         f"{MIXED_CONVERGE_RTOL['jax']})"),
+        ("ELBO card vs cpu", _rel(e_gpu, e_cpu) <= MIXED_CONVERGE_RTOL["cpu"],
+         f"rel {_rel(e_gpu, e_cpu):.3e} (limit "
+         f"{MIXED_CONVERGE_RTOL['cpu']})"),
+    ]
+    for key, got, got_cpu in (("mu", mu, mu_c), ("var", var, var_c)):
+        tol = MIXED_CONVERGE_STATE_TOL[key]
+        err = _rel_state_err(summary[key], conv[key])
+        checks.append((f"{key} card vs jax", err <= tol,
+                       f"{err:.3e} (limit {tol})"))
+        err = _rel_state_err(got.cpu().numpy(), got_cpu.numpy())
+        checks.append((f"{key} card vs cpu", err <= tol,
+                       f"{err:.3e} (limit {tol})"))
+    _check("mixed, converge", checks)
+
+
+def phase_mixed_wide(torch, pkg, ck, lin):
+    """The default mixed fit of the headline model at N=5000 on the card,
+    beside the float64 reference-rule fit at the same N."""
+    N = N_WIDE
+    n_k = 4
+    g = headline_problem(pkg, N=N, device="cuda")
+    eng, theta = g.engine, g._theta()
+
+    # B1 in float32 with multiplier 0 at this N, against its plain
+    # version: the exact-nugget lattice of the bulk fit
+    theta32 = theta.float()
+    t32 = g._tensor(g.time, torch.float32)
+    before = ck.LAUNCHES["kernel_matrix"]
+    Kf, Kw = eng._plain_matrices(theta32, t32)
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    structures = list(eng.spec.node_structs) + list(eng.spec.weight_structs)
+    from gpyrn_tpu_torch.models.gprn import unpack_parameters
+    node_p, weight_p, _, _ = unpack_parameters(eng.spec, theta32)
+    worst = 0.0
+    for K, s, q in zip(torch.cat([Kf, Kw]), structures, node_p + weight_p):
+        R = ck.kernel_matrix_ref(s, q, t32, lin.TRAIN_NUGGET, 0.0)
+        k0 = float(R[0, 0])
+        err = (K - R).abs()
+        if not bool((err <= 1e-6 * k0 + 2e-6 * R.abs()).all()) or \
+                not torch.equal(K, K.T):
+            raise AssertionError(f"B1 float32 multiplier 0 N={N} {s}: max "
+                                 f"abs err {float(err.max()):.3e}")
+        if float((torch.diagonal(K) - torch.diagonal(R)).abs().max()) != 0:
+            raise AssertionError(f"B1 float32 multiplier 0 N={N} {s}: the "
+                                 f"diagonal differs from the plain "
+                                 f"version's k(0) + nugget")
+        worst = max(worst, float(err.max()) / k0)
+        del R, err
+    del Kf, Kw
+    print(f"wide: B1 float32 with multiplier 0 at N={N}: {launched} "
+          f"launches for {n_k} matrices agree with the plain version, "
+          f"worst max-abs-err / k(0) = {worst:.3e} (rtol 2e-6, atol "
+          f"1e-6·k(0)), diagonals equal", flush=True)
+    if launched != n_k:
+        raise AssertionError(f"wide: {launched} launches for {n_k} matrices")
+
+    torch.cuda.reset_peak_memory_stats()
+    before = ck.LAUNCHES["kernel_matrix"]
+    (elbo, mu, var, n_iter), wall = _timed(
+        torch, lambda: g.ELBOcalc(precision='mixed'))
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    info = dict(g.mixed_info)
+    n_bulk, dt_bulk, n_polish, dt_polish = _mixed_stages(torch, g)
+    # one further float64 sweep from the returned state
+    data = g._data()
+    e_next, mu_next, _ = eng.sweep_once(theta, *data, mu, var)
+    e_next = float(e_next)
+    move = _rel_state_err(mu_next.cpu().numpy(), mu.cpu().numpy())
+    # factors of the float32 prior lattice with the scaled jitter, and of
+    # the float64 one
+    bad = {}
+    for name, dtype in (("float32", torch.float32), ("float64", None)):
+        args = (theta, g._tensor(g.time), data[1], data[2])
+        if dtype is not None:
+            args = tuple(a.to(dtype) for a in args)
+        L_all = eng._prepare(*args)[2]
+        bad[name] = int((~torch.isfinite(L_all).flatten(1).all(1)).sum())
+        del L_all
+    g64 = headline_problem(pkg, N=N, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    (e64, _, _, it64), wall64 = _timed(torch, g64.ELBOcalc)
+    peak64 = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"wide: N={N} mixed ELBOcalc {elbo!r} in {n_iter} sweeps, wall "
+          f"{wall:.3f} s, peak device memory {peak:.3f} GiB, B1 launches "
+          f"{launched}; float32 bulk {info}; stages timed apart: bulk "
+          f"{n_bulk} sweeps {dt_bulk:.3f} s "
+          f"({1e3 * dt_bulk / max(n_bulk, 1):.3f} ms/sweep), polish "
+          f"{n_polish} float64 sweeps {dt_polish:.3f} s "
+          f"({1e3 * dt_polish / n_polish:.3f} ms/sweep); one further "
+          f"float64 sweep: ELBO {e_next!r}, max|Δμ|/(1+max|μ|) {move:.3e}; "
+          f"non-finite prior factors {bad}; float64 reference-rule "
+          f"ELBOcalc {e64!r} in {it64} sweeps, {wall64:.3f} s "
+          f"({1e3 * wall64 / it64:.3f} ms/sweep), peak {peak64:.3f} GiB",
+          flush=True)
+    _check("wide", [
+        ("finite", np.isfinite(elbo) and bool(torch.isfinite(mu).all())
+         and bool((var > 0).all()), f"{tuple(mu.shape)}"),
+        ("B1 launches (float32 with multiplier 4 and 0, float64)",
+         launched == 3 * n_k, f"{launched} vs {3 * n_k}"),
+        ("the stall rule fired before max_iter",
+         info["stalled"] and info["bulk_sweeps"] < 10000,
+         f"{info['bulk_sweeps']} sweeps"),
+        ("non-finite float32 merits", info["nonfinite_merits"] == 0,
+         f"{info['nonfinite_merits']} of {info['blocks']}"),
+        ("non-finite prior factors", not any(bad.values()), f"{bad}"),
+        ("one further float64 sweep",
+         _rel(e_next, elbo) <= WIDE_NEXT_SWEEP_RTOL,
+         f"rel {_rel(e_next, elbo):.3e} (limit {WIDE_NEXT_SWEEP_RTOL})"),
+        ("not below the float64 reference-rule fit",
+         elbo >= e64 - WIDE_BELOW_F64_RTOL * abs(e64),
+         f"{elbo!r} vs {e64!r} (allowance {WIDE_BELOW_F64_RTOL} relative)"),
+    ])
+
+
+def phase_implicit(torch, pkg, oracle, ck):
+    """``elbo_grad(method='implicit')`` of the headline model on the card
+    against the cached JAX value and gradient and against the unrolled
+    gradient started at the fixed point."""
+    ref = oracle["implicit"]
+    n_k = 4
+    settings = {k: ref[k] for k in IMPLICIT}
+    g = headline_problem(pkg, device="cuda")
+    g.elbo_grad(method='implicit', fit_max_iter=2, adjoint_maxiter=1,
+                adjoint_restart=2)                        # warm-up
+    g._mu = g._var = None
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ck.LAUNCHES)
+    (value, grad), wall = _timed(
+        torch, lambda: g.elbo_grad(method='implicit', **settings))
+    launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    info = dict(g.implicit_info)
+    # the gradient alone, from the cached state
+    (v_warm, g_warm), wall_warm = _timed(
+        torch, lambda: g.elbo_grad(method='implicit',
+                                   fit_tol=IMPLICIT_WARM_FIT_TOL))
+    info_warm = dict(g.implicit_info)
+    # the unrolled gradient started at the fixed point
+    n_sweeps = GRAD_SWEEPS["headline"]
+    g.elbo_grad(n_sweeps=2)
+    torch.cuda.reset_peak_memory_stats()
+    (v_un, g_un), wall_un = _timed(
+        torch, lambda: g.elbo_grad(n_sweeps=n_sweeps))
+    peak_un = torch.cuda.max_memory_allocated() / 2 ** 30
+    g_err = _grad_error(grad, ref["grad"])
+    print(f"implicit: elbo_grad(method='implicit', {settings}) on the card "
+          f"{value!r} vs jax {ref['value']!r}; fit {info['fit_sweeps']} "
+          f"sweeps (converged {info['fit_converged']}), "
+          f"{info['pullbacks']} pull-backs, adjoint residual "
+          f"{info['adjoint_residual']:.3e} (jax "
+          f"{ref['adjoint_residual']:.3e}), state residual "
+          f"{info['state_residual']:.3e} (jax {ref['state_residual']:.3e}); "
+          f"wall {wall:.3f} s, peak device memory {peak:.3f} GiB, launches "
+          f"{launched}; again from the cached state with fit_tol "
+          f"{IMPLICIT_WARM_FIT_TOL}: {wall_warm:.3f} s, fit "
+          f"{info_warm['fit_sweeps']} sweeps, {info_warm['pullbacks']} "
+          f"pull-backs; unrolled {n_sweeps} sweeps from the fixed point: "
+          f"{v_un!r}, {wall_un:.3f} s, peak {peak_un:.3f} GiB", flush=True)
+    _check("implicit", [
+        ("value vs jax", _rel(value, ref["value"]) <= IMPLICIT_VALUE_RTOL,
+         f"rel {_rel(value, ref['value']):.3e} (limit "
+         f"{IMPLICIT_VALUE_RTOL})"),
+        ("gradient vs jax", np.all(np.isfinite(grad))
+         and g_err <= IMPLICIT_GRAD_TOL,
+         f"max|Δg|/max|g| {g_err:.3e} (limit {IMPLICIT_GRAD_TOL})"),
+        ("adjoint residual",
+         info["adjoint_residual"] <= IMPLICIT_ADJOINT_TOL,
+         f"{info['adjoint_residual']:.3e} (limit {IMPLICIT_ADJOINT_TOL})"),
+        ("B1 launches (fit_state and the linearised sweep)",
+         launched["kernel_matrix"] == 2 * n_k,
+         f"{launched['kernel_matrix']} vs {2 * n_k}"),
+        ("B1' launches (2 pull-backs to theta x 4 matrices)",
+         launched["kernel_matrix_grad"] == 2 * n_k,
+         f"{launched['kernel_matrix_grad']} vs {2 * n_k} in "
+         f"{info['pullbacks']} pull-backs"),
+        ("warm call agrees", _grad_error(g_warm, grad) <= IMPLICIT_GRAD_TOL
+         and _rel(v_warm, value) <= GRAD_VALUE_RTOL,
+         f"max|Δg|/max|g| {_grad_error(g_warm, grad):.3e}"),
+        ("value vs unrolled from the fixed point",
+         _rel(v_un, value) <= GRAD_VALUE_RTOL,
+         f"rel {_rel(v_un, value):.3e} (limit {GRAD_VALUE_RTOL})"),
+        ("gradient vs unrolled from the fixed point",
+         _grad_error(g_un, grad) <= IMPLICIT_UNROLL_TOL,
+         f"max|Δg|/max|g| {_grad_error(g_un, grad):.3e} (limit "
+         f"{IMPLICIT_UNROLL_TOL})"),
+        ("memory under the unrolled call's", peak < peak_un,
+         f"{peak:.3f} vs {peak_un:.3f} GiB"),
+    ])
+
+
+def phase_implicit_trainer(torch, pkg, oracle):
+    """Three ``optimize_adam(grad='implicit')`` steps of the headline model
+    on the card against the JAX package's (optax) result."""
+    ref = oracle["adam_implicit"]
+    g = headline_problem(pkg, device="cuda")
+    settings = {k: ref[k] for k in ADAM_IMPLICIT}
+    res, dt = _timed(torch, lambda: g.optimize_adam(
+        n_steps=ref["n_steps"], grad='implicit', **settings))
+    x_err = float(np.max(np.abs(res["x"] - np.asarray(ref["x"]))
+                         / np.abs(np.asarray(ref["x"]))))
+    print(f"implicit trainer: optimize_adam({ref['n_steps']} steps, "
+          f"grad='implicit', {settings}) on the card in {dt:.3f} s",
+          flush=True)
+    _check("implicit trainer", [
+        ("x vs jax", x_err <= ADAM_IMPLICIT_X_RTOL,
+         f"max rel err {x_err:.3e} (limit {ADAM_IMPLICIT_X_RTOL})"),
+        ("best loss vs jax", _rel(res["fun"], ref["fun"]) <= GRAD_VALUE_RTOL,
+         f"{res['fun']!r} vs {ref['fun']!r} rel "
+         f"{_rel(res['fun'], ref['fun']):.3e} (limit {GRAD_VALUE_RTOL})"),
+        ("refit ELBO at the optimum", np.isfinite(res["elbo"]),
+         f"{res['elbo']!r} vs jax {ref['elbo']!r} rel "
+         f"{_rel(res['elbo'], ref['elbo']):.3e}"),
+    ])
+
+
+def phase_flagship_state(torch, pkg, ck):
+    """The flagship model (q=2): a fixed count of ``fit_state`` sweeps and
+    one implicit call from that state, card against CPU (a converged q=2
+    comparison can land in another permutation basin)."""
+    from gpyrn_tpu_torch.models.implicit import implicit_value_and_grad_for
+    out = {}
+    for device in ("cuda", "cpu"):
+        g = flagship_problem(pkg, device=device)
+        eng, theta, data = g.engine, g._theta(), g._data()
+        mu0, var0 = eng.init_mu_var(theta, data[1])
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        mu, var, n_iter, conv = eng.fit_state(theta, *data, mu0, var0,
+                                              FLAGSHIP_STATE_SWEEPS, 0.0)
+        res = implicit_value_and_grad_for(eng)(theta, *data, mu, var,
+                                               **FLAGSHIP_ADJOINT)
+        grad = res.grad.cpu().numpy()
+        dt = time.perf_counter() - t0
+        launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        out[device] = (mu.cpu().numpy(), var.cpu().numpy(), n_iter, conv,
+                       float(res.elbo), grad, res.pullbacks,
+                       float(res.adjoint_residual), dt, launched)
+    (mu, var, it, conv, e, grad, pulls, adj, dt, launched) = out["cuda"]
+    (mu_c, var_c, it_c, _, e_c, grad_c, pulls_c, adj_c, dt_c, _) = out["cpu"]
+    n_k = 8
+    print(f"flagship: fit_state({FLAGSHIP_STATE_SWEEPS} sweeps, tol 0) and "
+          f"one implicit call ({FLAGSHIP_ADJOINT}) on the card {e!r} in "
+          f"{dt:.3f} s, cpu {e_c!r} in {dt_c:.3f} s; {pulls} pull-backs, "
+          f"adjoint residual {adj:.3e} (cpu {adj_c:.3e}: the solve is cut "
+          f"and the state is not a fixed point); launches {launched}",
+          flush=True)
+    _check("flagship", [
+        ("sweeps", (it, conv, it_c) == (FLAGSHIP_STATE_SWEEPS, False,
+                                        FLAGSHIP_STATE_SWEEPS), f"{it}"),
+        ("mu card vs cpu", _rel_state_err(mu, mu_c) <= STATE_TOL,
+         f"{_rel_state_err(mu, mu_c):.3e} (limit {STATE_TOL})"),
+        ("var card vs cpu", _rel_state_err(var, var_c) <= STATE_TOL,
+         f"{_rel_state_err(var, var_c):.3e} (limit {STATE_TOL})"),
+        ("ELBO card vs cpu", _rel(e, e_c) <= ELBO_RTOL,
+         f"rel {_rel(e, e_c):.3e} (limit {ELBO_RTOL})"),
+        ("pull-backs card vs cpu", pulls == pulls_c, f"{pulls} vs {pulls_c}"),
+        ("gradient card vs cpu", _grad_error(grad, grad_c) <= GRAD_TOL,
+         f"max|Δg|/max|g| {_grad_error(grad, grad_c):.3e} (limit "
+         f"{GRAD_TOL})"),
+        ("launches", launched == {"kernel_matrix": 2 * n_k,
+                                  "kernel_matrix_grad": 2 * n_k},
+         f"{launched}, expected {2 * n_k} of each"),
+    ])
+
+
 def trace_grad_path(torch, pkg):
     """One traced float64 30-sweep ``elbo_value_and_grad`` of the headline
     model (after a warm-up call): device time, idle share, the shares of
@@ -897,11 +1362,70 @@ def trace_grad_path(torch, pkg):
               flush=True)
 
 
+def _trace_summary(what, wall, kernels, expect):
+    """One line on a traced call: wall, device time, launches, idle share
+    and the kernels of this repo it holds (``expect``: kernel-name part →
+    the count the trace should hold)."""
+    busy = sum(ms for _, ms in kernels)
+    parts = []
+    for key, n in expect.items():
+        mine = [ms for k, ms in kernels if key in k]
+        parts.append(f"{key} {sum(mine):.4f} ms ({sum(mine) / busy:.5f} of "
+                     f"device time, {len(mine)} of {n} kernels)")
+    print(f"headline: traced {what}: wall {wall:.3f} ms, device kernels "
+          f"{busy:.3f} ms in {len(kernels)} launches (idle share "
+          f"{1 - busy / wall:.3f}); {'; '.join(parts)}", flush=True)
+    by_name = {}
+    for k, ms in kernels:
+        by_name[k] = by_name.get(k, 0.0) + ms
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"headline:   {v:9.3f} ms  {v / busy:.3f}  {k[:90]}",
+              flush=True)
+
+
+def trace_state_paths(torch, pkg):
+    """A traced block of the float32 stall fit (8 sweeps, the last with
+    the merit) and a traced implicit call at the converged state, headline
+    model, N=1000."""
+    from gpyrn_tpu_torch.models.implicit import implicit_value_and_grad_for
+    g = headline_problem(pkg, device="cuda")
+    eng, theta, data = g.engine, g._theta(), g._data()
+    mu0, var0 = eng.init_mu_var(theta, data[1])
+    args32 = tuple(a.float() for a in (theta, *data, mu0, var0))
+
+    def block():
+        return eng.fit_state_stall(*args32, g.stall_block, 0.0,
+                                   g.stall_block, 0.0, 10)
+
+    block()
+    wall, kernels = _traced(torch, block)
+    _trace_summary(f"float32 stall block ({g.stall_block} sweeps, both "
+                   f"lattices built)", wall, kernels,
+                   {"kernel_matrix_kernel": 8})
+
+    mu, var, n_fit, conv = eng.fit_state(theta, *data, mu0, var0,
+                                         IMPLICIT["fit_max_iter"],
+                                         IMPLICIT_WARM_FIT_TOL)
+    ivag = implicit_value_and_grad_for(eng)
+
+    def implicit():
+        return ivag(theta, *data, mu, var)
+
+    res = implicit()
+    wall, kernels = _traced(torch, implicit)
+    _trace_summary(f"implicit call at the fixed point ({n_fit} fit sweeps "
+                   f"before it, converged {conv}; {res.pullbacks} "
+                   f"pull-backs)", wall, kernels,
+                   {"kernel_matrix_kernel": 4, "kernel_matrix_grad": 16})
+
+
 def profile_main(torch, pkg, ck, lin):
     """Everything timed by torch.profiler, run in a fresh process: the
-    traced gradient call, then B1's and B1′'s times.  Its last line is
-    the JSON of the two kernels' records."""
+    traced gradient call, the traced stall block and implicit call, then
+    B1's and B1′'s times.  Its last line is the JSON of the two kernels'
+    records."""
     trace_grad_path(torch, pkg)
+    trace_state_paths(torch, pkg)
     records = {"kernel_matrix": time_kernel(torch, ck, lin),
                "kernel_matrix_grad": time_grad_kernel(torch, ck)}
     print(json.dumps({"records": records}), flush=True)
@@ -996,8 +1520,35 @@ def main():
     phase_stack(torch, ck, lin)
     host_cost_stack(torch, lin)
 
-    print("== phase 11: a traced gradient call and the kernels' times, in "
-          "a fresh process", flush=True)
+    # the mixed fit: the float32 bulk on the exact-nugget lattice
+    ck.reset_launch_counts()
+    print("== phase 11: mixed-precision fit, headline model, N=1000",
+          flush=True)
+    phase_mixed(torch, pkg, oracle, ck)
+    print(f"== phase 12: mixed-precision fit at full width, headline "
+          f"model, N={N_WIDE}", flush=True)
+    phase_mixed_wide(torch, pkg, ck, lin)
+    mixed_launches = dict(ck.LAUNCHES)
+    print(f"mixed path launches: {mixed_launches}", flush=True)
+    if mixed_launches["kernel_matrix"] == 0:
+        raise AssertionError("the mixed path never launched kernel_matrix")
+
+    # the implicit gradient of the converged ELBO
+    ck.reset_launch_counts()
+    print("== phase 13: implicit gradient, headline model", flush=True)
+    phase_implicit(torch, pkg, oracle, ck)
+    print("== phase 14: implicit trainer, headline model", flush=True)
+    phase_implicit_trainer(torch, pkg, oracle)
+    print("== phase 15: converged-state paths, flagship model", flush=True)
+    phase_flagship_state(torch, pkg, ck)
+    implicit_launches = dict(ck.LAUNCHES)
+    print(f"implicit path launches: {implicit_launches}", flush=True)
+    if min(implicit_launches.values()) == 0:
+        raise AssertionError("the implicit path never launched one of its "
+                             f"kernels: {implicit_launches}")
+
+    print("== phase 16: traced calls and the kernels' times, in a fresh "
+          "process", flush=True)
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             PROFILE_ARG], capture_output=True, text=True)
     lines = child.stdout.strip().splitlines()
@@ -1014,7 +1565,9 @@ def main():
     kernels = []
     for kname, rec in (("kernel_matrix", record),
                        ("kernel_matrix_grad", grad_record)):
-        by_path = {"fit": fit_launches[kname], "grad": grad_launches[kname]}
+        by_path = {"fit": fit_launches[kname], "grad": grad_launches[kname],
+                   "mixed": mixed_launches[kname],
+                   "implicit": implicit_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",

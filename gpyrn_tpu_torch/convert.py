@@ -44,10 +44,19 @@ def components_from_jax(nodes, weights, means, jitters):
     return nodes, weights, means, np.array(jitters, dtype=float)
 
 
+# the settings of the mixed-precision fit that both packages share
+_FIT_ATTRIBUTES = (
+    "update_muvar_after", "elbo_max_iter", "refine_sweeps", "refine_tol",
+    "refine_max_sweeps", "mixed_tol", "mixed_stall", "stall_block",
+    "stall_tol", "stall_patience", "mixed_stop", "fit_accelerate",
+    "accel_sweeps", "accel_tol", "accel_patience", "refine_method",
+    "fit_method", "verbose")
+
+
 def inference_from_jax(g, device) -> inference:
     """A port :class:`inference` on ``device`` holding the same data,
-    components, frozen mask and cached variational state as the JAX
-    inference ``g``."""
+    components, frozen mask, cached variational state and fit settings
+    (the mixed-precision fit's attributes) as the JAX inference ``g``."""
     data = []
     for y, yerr in zip(np.asarray(g.y), np.asarray(g.yerr)):
         data += [y, yerr]
@@ -56,6 +65,9 @@ def inference_from_jax(g, device) -> inference:
     out.set_components(*components_from_jax(g.nodes, g.weights, g.means,
                                             g.jitters))
     out._frozen_mask = np.array(g._frozen_mask, dtype=bool)
+    for name in _FIT_ATTRIBUTES:
+        if hasattr(g, name):
+            setattr(out, name, getattr(g, name))
     if g._mu is not None:
         out._mu = torch.tensor(np.array(g._mu, dtype=float),
                                device=out.device)

@@ -1,15 +1,17 @@
 """GPRN mean-field variational inference — engine on torch tensors.
 
-Port of the fit, gradient and prediction subset of
-:mod:`gpyrn_tpu.models.gprn`: the closed-form coordinate-ascent sweep
-(eqs. 16–19 of Nguyen & Bonilla 2013) batched over the q-node and
-(q × p)-weight lattice, the three ELBO terms, the reference stopping rule,
-the fixed-count sweeps and their gradient, and the posterior predictive.
-The JAX package fuses the fit into one ``lax.while_loop``; here it is an
-eager Python loop whose only host synchronisation is the stopping test,
-once per sweep.  The fixed-count sweeps are a plain loop (the JAX
-package's masked power-of-two sweep bucketing is a compile-count device
-of XLA and is not ported), differentiated by autograd.
+Port of the dense engine of :mod:`gpyrn_tpu.models.gprn`: the closed-form
+coordinate-ascent sweep (eqs. 16–19 of Nguyen & Bonilla 2013) batched over
+the q-node and (q × p)-weight lattice, the three ELBO terms, the reference
+stopping rule, the converged-state fits on the exact-nugget matrices
+(``fit_state``, and ``fit_state_stall`` with its merit-stall rule: the
+float32 bulk of the mixed-precision fit), the fixed-count sweeps and
+their gradient, and the posterior predictive.  The JAX package fuses each
+fit into one ``lax.while_loop``; here it is an eager Python loop whose
+only host synchronisation is the stopping test, once per sweep (once per
+chunk in ``fit_state_stall``).  The fixed-count sweeps are a plain loop
+(the JAX package's masked power-of-two sweep bucketing is a compile-count
+device of XLA and is not ported), differentiated by autograd.
 
 Numerical-parity notes (the JAX package's, ``gpyrn_tpu/models/gprn.py:16-33``):
 
@@ -409,6 +411,135 @@ class Engine:
         trace = torch.stack(trace) if trace else \
             torch.zeros(0, dtype=dtype, device=device)
         return elbo, mu, var, it, done, trace
+
+    # ---- converged-state fits (updates-only, exact nugget) ----------------
+
+    def _plain_matrices(self, theta, t):
+        """``(Kf, Kw_flat)`` with the fixed training nugget alone (no
+        float32 trace scaling): the matrices of the updates-only fits,
+        whose (K + D⁻¹) solves are float32-safe by D⁻¹, so that a float32
+        fit converges to the true model's fixed point."""
+        spec = self.spec
+        node_p, weight_p, _, _ = unpack_parameters(spec, theta)
+        node_c = self._core(node_p, self.node_maps)
+        weight_c = self._core(weight_p, self.weight_maps)
+        Kf = kernel_matrix_stack(spec.node_structs, node_c, t, TRAIN_NUGGET,
+                                 jitter_mult=0.0)
+        Kw_flat = kernel_matrix_stack(spec.weight_structs, weight_c, t,
+                                      TRAIN_NUGGET, jitter_mult=0.0)
+        return Kf, Kw_flat
+
+    @staticmethod
+    def _state_delta(mu_f, mu_w, muF, muW):
+        """max |Δμ| / (1 + max |μ|) of one sweep, a 0-d tensor."""
+        scale = 1.0 + torch.maximum(mu_f.abs().max(), mu_w.abs().max())
+        return torch.maximum((mu_f - muF).abs().max(),
+                             (mu_w - muW).abs().max()) / scale
+
+    def fit_state(self, theta, t, y, yerr2, mu0, var0, max_iter, tol):
+        """Iterate the updates-only sweep on the exact-nugget matrices
+        until the variational means stand still,
+        max |Δμ| / (1 + max |μ|) < ``tol``, or ``max_iter`` sweeps.
+        Returns ``(mu, var, n_iter, converged)``.  One boolean comes to
+        the host per sweep."""
+        Kf, Kw_flat = self._plain_matrices(theta, t)
+        _, _, _, jitters = unpack_parameters(self.spec, theta)
+        y_c = y - self._mean_values(theta, t)
+        variance = jitters[:, None] ** 2 + yerr2
+        muF, muW = self._u_split(mu0.reshape(-1))
+        varF, varW = self._u_split(var0.reshape(-1))
+        tol = torch.as_tensor(tol, dtype=muF.dtype, device=muF.device)
+        it, done = 0, False
+        while not done and it < max_iter:
+            mu_f, varF, mu_w, varW = self._sweep_updates(
+                Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
+            done = bool(self._state_delta(mu_f, mu_w, muF, muW) < tol)
+            muF, muW = mu_f, mu_w
+            it += 1
+        mu = torch.cat([muF.reshape(-1), muW.reshape(-1)])
+        var = torch.cat([varF.reshape(-1), varW.reshape(-1)])
+        return mu, var, it, done
+
+    def _merit_stall_loop(self, block_fn, mu0, var0, max_iter, tol,
+                          stall_tol, patience, block, info=None):
+        """The loop of the merit-stall fit: ``block``-sweep chunks of the
+        updates-only map, each scored by the ELBO its last sweep
+        evaluates.  Stops when the state stands still (``fit_state``'s
+        rule on the chunk's last sweep) or the merit stalls: ``patience``
+        chunks in a row that fail to beat ``best + stall_tol·|best|`` (in
+        float32 the state wobbles at the rounding floor forever, so the
+        state rule alone often never fires).  A non-finite merit never
+        improves.  Returns the best-merit state on a stall and the current
+        state on the state rule, or when no merit was ever finite.  The
+        merit, its threshold and the counters stay on the device in the
+        state's dtype; one boolean comes to the host per chunk.  ``info``,
+        when a dict, receives ``blocks``, ``nonfinite_merits``,
+        ``best_merit`` and ``stalled``."""
+        muF, muW = self._u_split(mu0.reshape(-1))
+        varF, varW = self._u_split(var0.reshape(-1))
+        cur = (muF, varF, muW, varW)
+        dt, dev = muF.dtype, muF.device
+        tol = torch.as_tensor(tol, dtype=dt, device=dev)
+        stall_tol = torch.as_tensor(stall_tol, dtype=dt, device=dev)
+        neg_inf = torch.full((), -math.inf, dtype=dt, device=dev)
+        bE, best = neg_inf, cur
+        delta = torch.full((), math.inf, dtype=dt, device=dev)
+        stall = torch.zeros((), dtype=torch.int32, device=dev)
+        nonfinite = torch.zeros((), dtype=torch.int32, device=dev)
+        it, done = 0, False
+        while not done and it < max_iter:
+            e, *cur, delta = block_fn(*cur)
+            # -inf best (no finite merit yet): any finite e improves
+            thresh = torch.where(torch.isfinite(bE),
+                                 bE + stall_tol * torch.abs(bE), neg_inf)
+            improved = torch.isfinite(e) & (e > thresh)
+            bE = torch.where(improved, e, bE)
+            best = tuple(torch.where(improved, c, b)
+                         for c, b in zip(cur, best))
+            stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
+            nonfinite = nonfinite + (~torch.isfinite(e)).to(torch.int32)
+            it += block
+            done = bool((delta < tol) | (stall >= patience))
+        # state rule (or a merit that never went finite): the current
+        # state is the most converged; on a stall the best-merit one
+        take_cur = (delta < tol) | ~torch.isfinite(bE)
+        muF, varF, muW, varW = (torch.where(take_cur, c, b)
+                                for c, b in zip(cur, best))
+        if info is not None:
+            info.update(blocks=it // block,
+                        nonfinite_merits=int(nonfinite),
+                        best_merit=float(bE),
+                        stalled=bool(done and not bool(delta < tol)))
+        mu = torch.cat([muF.reshape(-1), muW.reshape(-1)])
+        var = torch.cat([varF.reshape(-1), varW.reshape(-1)])
+        return mu, var, it, done
+
+    def fit_state_stall(self, theta, t, y, yerr2, mu0, var0, max_iter, tol,
+                        block, stall_tol, patience, info=None):
+        """:meth:`fit_state` with the merit-stall stopping rule: chunks of
+        ``block − 1`` updates-only sweeps and one full :meth:`_sweep`, all
+        on the exact-nugget matrices (the update map is ``fit_state``'s);
+        only the ELBO's prior terms use the jittered prior factors of
+        :meth:`_prepare`, which is what keeps them finite in float32.
+        Returns ``(mu, var, n_iter, converged)``; ``n_iter`` counts whole
+        chunks, so up to ``block − 1`` sweeps may run past ``max_iter``."""
+        block = int(block)
+        _, _, L_all, Linv_nodes, y_c, y_raw, variance = self._prepare(
+            theta, t, y, yerr2)
+        Kf_p, Kw_p = self._plain_matrices(theta, t)
+
+        def block_fn(muF, varF, muW, varW):
+            for _ in range(block - 1):
+                muF, varF, muW, varW = self._sweep_updates(
+                    Kf_p, Kw_p, y_c, variance, muF, varF, muW, varW)
+            e, mu_f, varf, mu_w, varw = self._sweep(
+                Kf_p, Kw_p, L_all, Linv_nodes, y_c, y_raw, variance,
+                muF, varF, muW, varW)
+            return (e, mu_f, varf, mu_w, varw,
+                    self._state_delta(mu_f, mu_w, muF, muW))
+
+        return self._merit_stall_loop(block_fn, mu0, var0, max_iter, tol,
+                                      stall_tol, patience, block, info)
 
     # ---- fixed sweep counts and the gradient ------------------------------
 

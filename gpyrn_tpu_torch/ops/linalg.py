@@ -87,22 +87,29 @@ def kernel_matrix(structure, params, t, nugget=TRAIN_NUGGET):
     return K + jitter * _eye(t)
 
 
-def kernel_matrix_stack(structures, params, t, nugget=TRAIN_NUGGET):
+def kernel_matrix_stack(structures, params, t, nugget=TRAIN_NUGGET,
+                        jitter_mult=F32_JITTER_MULT):
     """The ``(B, N, N)`` stack of :func:`kernel_matrix` over a list of
-    structures and their parameters.  When the CUDA kernel supports every
-    structure, a CUDA tensor goes through the kernel straight into one
-    buffer and a CPU tensor through its plain version; a list that holds
-    any other structure is built matrix by matrix and stacked."""
+    structures and their parameters, or, with ``jitter_mult=0``, of
+    :func:`kernel_matrix_plain` (the exact nugget of the updates-only
+    fits).  When the CUDA kernel supports every structure, a CUDA tensor
+    goes through the kernel straight into one buffer and a CPU tensor
+    through its plain version; a list that holds any other structure is
+    built matrix by matrix and stacked."""
+    if jitter_mult not in (0.0, F32_JITTER_MULT):
+        raise ValueError(f"jitter_mult is F32_JITTER_MULT or 0 (the exact "
+                         f"nugget), got {jitter_mult!r}")
     structures = tuple(structures)
     if all(_ck.cuda_supported(s) for s in structures):
         params = [_params(p, t) for p in params]
         if t.is_cuda:
             return _ck.kernel_matrix_stack_cuda(
                 structures, [p.contiguous() for p in params], t.contiguous(),
-                nugget, F32_JITTER_MULT)
+                nugget, jitter_mult)
         return _ck.kernel_matrix_stack_ref(structures, params, t, nugget,
-                                           F32_JITTER_MULT)
-    return torch.stack([kernel_matrix(s, p, t, nugget)
+                                           jitter_mult)
+    one = kernel_matrix if jitter_mult else kernel_matrix_plain
+    return torch.stack([one(s, p, t, nugget)
                         for s, p in zip(structures, params)])
 
 
@@ -143,7 +150,9 @@ def kernel_diag(structure, params, t, nugget=TRAIN_NUGGET):
         d = torch.broadcast_to(
             _k.evaluate(structure, params, r=torch.zeros_like(t)), t.shape)
     eps = torch.finfo(d.dtype).eps
-    jitter = torch.clamp_min(F32_JITTER_MULT * eps * torch.sum(d), nugget)
+    # maximum, not clamp_min: at a tie the gradient splits as in JAX
+    jitter = torch.maximum(F32_JITTER_MULT * eps * torch.sum(d),
+                           d.new_full((), nugget))
     return d + jitter
 
 

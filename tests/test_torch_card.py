@@ -351,3 +351,85 @@ def test_gradient_path_on_card_matches_cpu(cuda):
     assert abs(float(v_gpu) - float(v_cpu)) <= 1e-9 * abs(float(v_cpu))
     assert float((g_gpu.cpu() - g_cpu).abs().max()) <= \
         1e-7 * float(g_cpu.abs().max())
+
+
+def _headline_small(device, N=64):
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0, 100, N))
+    data = []
+    for i in range(3):
+        data += [np.sin(2 * np.pi * t / (20 + 5 * i))
+                 + 0.1 * rng.standard_normal(N), np.full(N, 0.1)]
+    g = gt.inference(1, t, *data, device=device)
+    g.set_components([gt.covfunc.QuasiPeriodic(1.0, 30.0, 20.0, 0.7)],
+                     [gt.covfunc.SquaredExponential(1.0 + 0.05 * k, 30.0)
+                      for k in range(3)], [None] * 3, [0.1] * 3)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_exact_nugget_stack_on_card_matches_plain(dtype, cuda):
+    """``kernel_matrix_stack(jitter_mult=0)`` on a CUDA tensor: one B1
+    launch per matrix into one buffer, equal to the plain version (B1's
+    tolerances) with k(0) + nugget exactly on the diagonal."""
+    rtol, atol = (1e-12, 1e-14) if dtype == torch.float64 else (2e-6, 1e-6)
+    structures = [("QP",)] + [("SE",)] * 3
+    pars = [(1.0, 30.0, 20.0, 0.7)] + [(1.0 + 0.05 * k, 30.0)
+                                       for k in range(3)]
+    t = torch.tensor(_times(257), dtype=dtype, device=cuda)
+    params = [torch.tensor(q, dtype=dtype, device=cuda) for q in pars]
+    before = ck.LAUNCHES["kernel_matrix"]
+    K = tlin.kernel_matrix_stack(structures, params, t, 1e-6,
+                                 jitter_mult=0.0)
+    assert ck.LAUNCHES["kernel_matrix"] == before + 4
+    R = ck.kernel_matrix_stack_ref(structures, params, t, 1e-6, 0.0)
+    assert K.shape == (4, 257, 257) and K.is_contiguous()
+    torch.testing.assert_close(K, R, rtol=rtol, atol=atol)
+    assert torch.equal(torch.diagonal(K, dim1=1, dim2=2),
+                       torch.diagonal(R, dim1=1, dim2=2))
+
+
+@pytest.mark.cuda
+def test_mixed_fit_on_card_matches_cpu(cuda):
+    """The mixed fit polished to the float64 fixed point lands on the same
+    ELBO on the card and on the CPU (relative 1e-7; the float32 bulks
+    differ by rounding), and launches B1 for the jittered and the
+    exact-nugget float32 lattices and once per float64 polish call."""
+    out = {}
+    for device in (cuda, "cpu"):
+        g = _headline_small(device)
+        g.refine_sweeps, g.refine_tol = 'converge', 1e-10
+        before = ck.LAUNCHES["kernel_matrix"]
+        elbo, mu, var, n_iter = g.ELBOcalc(precision='mixed')
+        launched = ck.LAUNCHES["kernel_matrix"] - before
+        polish = g.mixed_info["polish_sweeps"]
+        assert launched == (4 * (2 + polish) if device == cuda else 0)
+        assert mu.dtype == torch.float64 and mu.device.type == str(
+            device).split(":")[0]
+        assert g.mixed_info["nonfinite_merits"] == 0
+        out[str(device)] = elbo
+    assert abs(out["cuda"] - out["cpu"]) <= 1e-7 * abs(out["cpu"])
+
+
+@pytest.mark.cuda
+def test_implicit_gradient_on_card_matches_cpu(cuda):
+    """``elbo_grad(method='implicit')`` on the card and on the CPU: value
+    relative 1e-9, gradient 1e-6 of max |g| (two GMRES runs, each held to
+    1e-10); B1′ runs for 2 pull-backs × 4 matrices, whatever the number of
+    Krylov steps."""
+    out = {}
+    for device in (cuda, "cpu"):
+        g = _headline_small(device)
+        before = dict(ck.LAUNCHES)
+        out[str(device)] = g.elbo_grad(method='implicit', fit_max_iter=4000)
+        launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        expected = 8 if device == cuda else 0
+        assert launched == {"kernel_matrix": expected,
+                            "kernel_matrix_grad": expected}
+        assert g.implicit_info["pullbacks"] > 4
+        assert g.implicit_info["adjoint_residual"] < 1e-10
+        assert g._mu.device.type == str(device).split(":")[0]
+    (v_gpu, g_gpu), (v_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(v_gpu - v_cpu) <= 1e-9 * abs(v_cpu)
+    assert np.max(np.abs(g_gpu - g_cpu)) <= 1e-6 * np.max(np.abs(g_cpu))

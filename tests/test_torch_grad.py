@@ -144,6 +144,29 @@ def test_clamp_ties_split_the_gradient_as_jax():
     for a, r in zip(args, ref):
         np.testing.assert_array_equal(a.grad.numpy(), np.asarray(r))
 
+    # kernel_diag's jitter max(nugget, 4·eps·Σd) at its tie: a nugget
+    # equal to the scaled term splits the gradient as jnp.maximum does
+    # (``gpyrn_tpu/ops/linalg.py:159-160``)
+    t = np.linspace(0.0, 3.0, 4)
+    pars = np.array([1.5, 2.0])
+    tie = float(4.0 * np.finfo(np.float64).eps * 4 * pars[0] ** 2)
+    for nugget in (tie, 0.5 * tie, 2.0 * tie):
+        g_jax = jax.grad(lambda p: jnp.sum(jlin.kernel_diag(
+            ("SE",), p, jnp.asarray(t), nugget)))(jnp.asarray(pars))
+        p_t = torch.tensor(pars, requires_grad=True)
+        tlin.kernel_diag(("SE",), p_t, torch.tensor(t), nugget).sum() \
+            .backward()
+        np.testing.assert_allclose(p_t.grad.numpy(), np.asarray(g_jax),
+                                   rtol=1e-15, atol=0)
+    shares = []
+    for nugget in (0.5 * tie, tie, 2.0 * tie):
+        p_t = torch.tensor(pars, requires_grad=True)
+        (tlin.kernel_diag(("SE",), p_t, torch.tensor(t), nugget).sum()
+         - 4 * p_t[0] ** 2).backward()
+        shares.append(float(p_t.grad[0]))
+    assert shares[0] > shares[1] > shares[2] == 0.0
+    assert shares[1] == pytest.approx(0.5 * shares[0], rel=1e-12)
+
 
 def _components(pkg, q, p):
     cf, mf = pkg.covfunc, pkg.meanfunc

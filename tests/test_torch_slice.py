@@ -137,8 +137,16 @@ def test_parameters_round_trip():
 def test_starting_states_and_precision():
     g = _small()
     g.generator.manual_seed(5)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        g.ELBOcalc(precision='mixed')
+    # the modes of the mixed fit that are still to be ported say where
+    for attr, value in (("fit_method", "cg"), ("fit_method", "svi"),
+                        ("refine_method", "df64")):
+        setattr(g, attr, value)
+        with pytest.raises(NotImplementedError, match="ROADMAP A1[23]"):
+            g.ELBOcalc(precision='mixed')
+        setattr(g, attr, {"fit_method": "dense",
+                          "refine_method": "auto"}[attr])
+    with pytest.raises(ValueError, match="precision"):
+        g.ELBOcalc(precision='float32')
     e_init, *_ = g.ELBOcalc(max_iter=3)
     assert g._mu is None                           # not converged: no cache
     e1, mu1, _, it1 = g.ELBOcalc(mu='random', var='random', max_iter=3)
