@@ -39,9 +39,12 @@ ends non-zero:
    adjoint per case; a second call gives the same bits;
 10. ``kernel_matrix_stack_cuda`` (the lattice of kernel matrices built
     into one buffer) vs its plain version: values and gradients of a
-    QP + 3 × SE list, float64 and float32; and the host's time per call
-    of ``linalg.kernel_matrix_stack`` against the matrix-by-matrix build
-    with ``torch.stack``;
+    QP + 3 × SE list, float64 and float32; ``kernel_matrix_rows_cuda``
+    (13 rows of that list, the batched paths' lattice) vs its plain
+    version and the one-row stack; the host's time per call of
+    ``linalg.kernel_matrix_stack`` against the matrix-by-matrix build with
+    ``torch.stack``, and of ``linalg.kernel_matrix_rows`` for 13 and 68
+    rows against one ``kernel_matrix_stack`` over the flattened list;
 11. the mixed-precision fit, headline model at N=1000:
     ``ELBOcalc(precision='mixed')`` with its defaults (the float32
     merit-stall fit on the exact-nugget matrices, three float64 polish
@@ -65,16 +68,34 @@ ends non-zero:
     and one implicit call from that state, card against CPU;
 16. in a fresh process (``chip_smoke.py --profile``): a traced 30-sweep
     gradient call, a traced block of the float32 stall fit and a traced
-    implicit call of the headline model, then B1's and B1′'s device times
-    against their plain versions' and their bounds.  After some dozens of
-    profiled runs and ~150k traced kernels in one process,
-    torch.profiler was seen to lose records (an H100, torch 2.11), so the
-    profiled work gets a process of its own.
+    implicit call (headline model), then B1's and B1′'s device times
+    against their plain versions' and their bounds; in a second one
+    (``--profile-batch``) a traced sweep of the 13-row θ batch beside one
+    of its rows alone, and the share of ``_prepare`` in a 68-row
+    ``optimize_device`` objective call.  After some dozens of profiled runs and ~150k
+    traced kernels in one process, torch.profiler was seen to lose records
+    (an H100, torch 2.11; the first process sat at that edge once the
+    batched traces were in it), so the profiled work gets processes of
+    its own;
+17. the θ-batched fit, headline model: ``Engine.elbo_fit_batch`` of 13
+    perturbed parameter rows against the single-θ ``elbo_fit`` of each
+    row on the card and the JAX package's cached ``vmap(elbo_fit)``;
+    walker-fits per second against 13 sequential fits, peak memory (the
+    sequential fits are the comparison: their launches leave the count);
+18. ``optimize_device`` (Nelder-Mead on the device, 3 sweeps per
+    objective, 30 iterations), alone and with 4 restarts, against the
+    cached JAX results (the restarted call at the oracle's 8 iterations);
+    iterations per second;
+19. ``mcmc`` with 26 walkers and 10 steps: the host loop with scipy
+    priors against the cached JAX host-loop chain, and the device chain
+    with the port's priors; ensemble steps per second;
+20. ``evidence.batch_elbo`` over 8 parameter rows against the cached JAX
+    values.
 
 The launch counts are set to 0 before each path (phases 3–5, phases
-6–7, phases 11–12, phases 13–15) and read after it.  The last three lines
-are the kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+6–7, phases 11–12, phases 13–15, phases 17–20) and read after it.  The
+last three lines are the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -88,8 +109,11 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# the argument of the child process that runs the profiled phase
+# the arguments of the child processes that run the profiled phase: the
+# traced calls and the kernels' times, and the traced batched sweeps
 PROFILE_ARG = "--profile"
+PROFILE_BATCH_ARG = "--profile-batch"
+TRACE_TRIES = 4
 ORACLE = os.path.join(HERE, "chip_smoke_oracle.json")
 N_MAIN = 1000
 FIT_SWEEPS = 10
@@ -243,6 +267,45 @@ def flagship_problem(pkg, N=N_MAIN, seed=0, **kw):
 
 PROBLEMS = {"headline": headline_problem, "flagship": flagship_problem}
 
+# the batched paths (phases 17-20), all on the headline model at N=1000
+# (13 hyperparameters): the θ batch of one ensemble half-step, 13 rows of
+# log-normally perturbed parameters (row 0 unperturbed), fitted under the
+# reference rule; optimize_device's settings (3 sweeps per objective, 17
+# candidates per iteration; with restarts a population of 4 simplexes,
+# 68 candidates); the sampler (26 walkers, 2·ndim) with log-normal priors
+# of width 0.3 around the starting values; the evidence batch
+BATCH = {"rows": 13, "spread": 0.1, "seed": 7, "max_iter": 10000}
+OPT = {"n_sweeps": 3, "max_iter": 30}
+OPT_RESTARTS = 4
+MCMC = {"nwalkers": 26, "niter": 10, "elbo_max_iter": 100, "seed": 0}
+PRIOR_WIDTH = 0.3
+EVIDENCE = {"rows": 8, "spread": 0.1, "seed": 11, "max_iter": 100}
+# the cached JAX values of the costlier two are cut to regenerate on a
+# CPU in minutes: the restarted simplex runs OPT_RESTART_ORACLE_ITERS
+# iterations (the card runs the same cut call beside the full one), and
+# the JAX host loop MCMC_ORACLE_STEPS steps (the host loop's first steps
+# do not depend on how many follow, so the card's chain is held to them)
+OPT_RESTART_ORACLE_ITERS = 8
+MCMC_ORACLE_STEPS = 2
+
+
+def batch_thetas(theta0, rows, spread, seed):
+    """``rows`` copies of the parameter vector ``theta0``, each entry
+    times exp(spread·N(0, 1)) from default_rng(seed); row 0 unperturbed."""
+    theta0 = np.asarray(theta0, dtype=float)
+    rng = np.random.default_rng(seed)
+    out = theta0[None, :] * np.exp(
+        spread * rng.standard_normal((rows, theta0.size)))
+    out[0] = theta0
+    return out
+
+
+def headline_priors(g, lognormal):
+    """Per free parameter of ``g``, ``lognormal(log value, PRIOR_WIDTH)``:
+    a scipy or a port prior, as the caller makes it."""
+    return {name: lognormal(np.log(value), PRIOR_WIDTH)
+            for name, value in g.parameters_dict.items()}
+
 # structures and parameters of the kernel-vs-plain phase
 KERNEL_CASES = [
     (("SE",), (1.2, 8.0)),
@@ -313,31 +376,74 @@ def _time_ms(torch, fn, reps):
     return float(np.median(times))
 
 
+def _trace_kernels(torch, fn, reps=1, name=None):
+    """(wall ms, [(kernel name, device ms)]) of one torch.profiler trace
+    of ``reps`` calls of ``fn``: every CUDA kernel the trace holds, or,
+    when ``name`` is given, those whose name holds it.  The profiler
+    now and then hands back a trace without these device records; such a
+    trace is taken again, up to ``TRACE_TRIES`` times in all, and then
+    the result is None."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, TRACE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        device = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [(k, ms) for k, ms in device if name is None or name in k]
+        if kernels:
+            return wall, kernels
+        print(f"trace {attempt} of {TRACE_TRIES}: {len(device)} device "
+              f"records, none of them {name or 'a kernel'} (names: "
+              f"{sorted({k[:60] for k, _ in device})[:4]})", file=sys.stderr,
+              flush=True)
+    return None
+
+
+def _traced(torch, fn):
+    """One traced call: (wall ms, [(kernel name, device ms)] of every CUDA
+    kernel the trace holds)."""
+    traced = _trace_kernels(torch, fn)
+    if traced is None:
+        raise AssertionError(f"the profiler saw no device time in "
+                             f"{TRACE_TRIES} traces")
+    return traced
+
+
 def _device_ms(torch, fn, reps, name=None):
     """Device time per call (ms) from a torch.profiler trace of ``reps``
     calls of ``fn``: the summed durations of all its CUDA kernels over
     ``reps``; or, when ``name`` is given, of the kernels whose name holds
     it, each launched once per call: the mean duration of each such
     kernel, summed over their names (unmoved if the trace lost some
-    records)."""
-    from torch.profiler import ProfilerActivity, profile
+    records).  Where no trace holds them, the time per call between two
+    CUDA events around the ``reps`` calls, which bounds it from above."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    traced = _trace_kernels(torch, fn, reps, name)
+    if traced is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        print(f"device time of {name or 'all kernels'} from CUDA events: "
+              f"{ms:.5f} ms per call", file=sys.stderr, flush=True)
+        return ms
     durations = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and (
-                name is None or name in e.name):
-            durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if not durations:
-        raise AssertionError("the profiler saw no device time")
+    for k, ms in traced[1]:
+        durations.setdefault(k, []).append(ms)
     if name is None:
-        return sum(map(sum, durations.values())) / reps / 1e3
-    return sum(sum(d) / len(d) for d in durations.values()) / 1e3
+        return sum(map(sum, durations.values())) / reps
+    return sum(sum(d) / len(d) for d in durations.values())
 
 
 _INSTANCE = re.compile(
@@ -464,6 +570,64 @@ def phase_stack(torch, ck, lin):
               f"{float((K - R).abs().max()):.3e} at N={N_MAIN}), gradients "
               f"worst max|Δg|/max|g| = {worst:.3e} (limit {tol}), "
               f"{B} launches of each kernel per call", flush=True)
+        phase_rows(torch, ck, lin, structures, pars, dtype, rtol, atol)
+
+
+def _row_params(torch, pars, W, dtype, seed):
+    """W rows of each parameter tuple of ``pars``, log-normally perturbed
+    (spread 0.1, default_rng(seed)), as (W, n) tensors on the card."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(np.asarray(q) * np.exp(
+        0.1 * rng.standard_normal((W, len(q)))), dtype=dtype, device="cuda")
+        for q in pars]
+
+
+def phase_rows(torch, ck, lin, structures, pars, dtype, rtol, atol):
+    """``kernel_matrix_rows_cuda`` at the batched fit's shapes (13 rows of
+    the headline lattice, N=1000) vs its plain version and, row by row, the
+    one-row stack to the bit; its gradients vs the plain version's at 3
+    rows, N=33."""
+    W, B = BATCH["rows"], len(structures)
+    t = torch.tensor(np.sort(np.random.default_rng(W).uniform(0, 100,
+                                                               N_MAIN)),
+                     dtype=dtype, device="cuda")
+    rows = _row_params(torch, pars, W, dtype, W)
+    before = ck.LAUNCHES["kernel_matrix"]
+    K = ck.kernel_matrix_rows_cuda(structures, rows, t, lin.TRAIN_NUGGET,
+                                   lin.F32_JITTER_MULT)
+    torch.cuda.synchronize()
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    R = ck.kernel_matrix_rows_ref(structures, rows, t, lin.TRAIN_NUGGET,
+                                  lin.F32_JITTER_MULT)
+    err = float((K - R).abs().max())
+    one_row = all(torch.equal(K[w], ck.kernel_matrix_stack_cuda(
+        structures, [r[w] for r in rows], t, lin.TRAIN_NUGGET,
+        lin.F32_JITTER_MULT)) for w in range(W))
+    tol = STACK_GRAD_TOL[_dtype_name(dtype)]
+    tg = torch.tensor(np.sort(np.random.default_rng(3).uniform(0, 100, 33)),
+                      dtype=dtype, device="cuda")
+    G = torch.tensor(np.random.default_rng(4).standard_normal((3, B, 33, 33)),
+                     dtype=dtype, device="cuda")
+    grads = []
+    for fn in (ck.kernel_matrix_rows_cuda, ck.kernel_matrix_rows_ref):
+        ps = [r[:3].clone().requires_grad_(True) for r in rows]
+        grads.append(torch.autograd.grad(
+            fn(structures, ps, tg, lin.TRAIN_NUGGET, lin.F32_JITTER_MULT),
+            ps, grad_outputs=G))
+    g_err = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(*grads))
+    _check(f"kernel_matrix_rows {_dtype_name(dtype)}", [
+        ("shape", tuple(K.shape) == (W, B, N_MAIN, N_MAIN)
+         and K.is_contiguous(), f"{tuple(K.shape)}"),
+        ("values vs plain", bool(((K - R).abs() <= atol * R.abs().amax()
+                                  + rtol * R.abs()).all()),
+         f"max |Δ| {err:.3e}"),
+        ("each row equals the one-row stack", one_row, f"{W} rows"),
+        ("launches, one per matrix", launched == W * B,
+         f"{launched} vs {W * B}"),
+        ("gradients vs plain", np.isfinite(g_err) and g_err <= tol,
+         f"max|Δg|/max|g| {g_err:.3e} (limit {tol})"),
+    ])
 
 
 def _host_ms(torch, fn, reps):
@@ -518,6 +682,28 @@ def host_cost_stack(torch, lin):
               f"{s_b[0]:.4f} ({s_b[1]:.4f}); per matrix and torch.stack "
               f"{p_a[0]:.4f} ({p_a[1]:.4f}) and {p_b[0]:.4f} ({p_b[1]:.4f})",
               flush=True)
+    # the batched paths' lattice: W rows in one kernel_matrix_rows call
+    # (each structure checked and its jitters computed once) against one
+    # kernel_matrix_stack call over the W·4 matrices' flattened list
+    for W in (BATCH["rows"], OPT_RESTARTS * 17):
+        rows = _row_params(torch, pars, W, torch.float64, W)
+        flat = [r[w] for w in range(W) for r in rows]
+
+        def by_rows():
+            return lin.kernel_matrix_rows(structures, rows, t)
+
+        def flattened():
+            return lin.kernel_matrix_stack(structures * W, flat, t)
+
+        runs = [_host_ms(torch, build, 30)
+                for build in (by_rows, flattened, flattened, by_rows)]
+        (r_a, f_a, f_b, r_b) = runs
+        print(f"host cost of the lattice, {W} rows, forward, QP + 3 x SE, "
+              f"N={N_MAIN}, float64, 30 calls, ms per call enqueued (until "
+              f"the card is done): kernel_matrix_rows {r_a[0]:.4f} "
+              f"({r_a[1]:.4f}) and {r_b[0]:.4f} ({r_b[1]:.4f}); one "
+              f"kernel_matrix_stack over the flattened list {f_a[0]:.4f} "
+              f"({f_a[1]:.4f}) and {f_b[0]:.4f} ({f_b[1]:.4f})", flush=True)
 
 
 def phase_kernels(torch, ck, lin):
@@ -825,39 +1011,13 @@ def phase_main(torch, pkg, name, oracle, ck):
                              "finite or has the wrong shape")
 
     # where the device time of a converged fit goes (a second, traced run)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        g_gpu.ELBOcalc()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    km = sum(e.time_range.elapsed_us() for e in kernels
-             if "kernel_matrix_kernel" in e.name) / 1e3
-    print(f"{name}: traced converged ELBOcalc: wall {1e3 * wall:.3f} ms, "
+    wall, kernels = _traced(torch, g_gpu.ELBOcalc)
+    busy = sum(ms for _, ms in kernels)
+    km = sum(ms for k, ms in kernels if "kernel_matrix_kernel" in k)
+    print(f"{name}: traced converged ELBOcalc: wall {wall:.3f} ms, "
           f"device kernels {busy:.3f} ms in {len(kernels)} launches "
-          f"(idle share {1 - busy / (1e3 * wall):.3f}), kernel_matrix "
+          f"(idle share {1 - busy / wall:.3f}), kernel_matrix "
           f"{km:.4f} ms ({km / busy:.5f} of device time)", flush=True)
-
-
-def _traced(torch, fn):
-    """One traced call: (wall ms, [(kernel name, device ms)] of every CUDA
-    kernel the trace holds)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    kernels = [(e.name, e.time_range.elapsed_us() / 1e3)
-               for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("the profiler saw no device time")
-    return wall, kernels
 
 
 def _grad_error(g, ref):
@@ -1322,6 +1482,246 @@ def phase_flagship_state(torch, pkg, ck):
     ])
 
 
+def _batch_inputs(g, cfg):
+    """The θ rows of ``cfg`` around ``g``'s parameters, and their heuristic
+    starting states, as tensors on ``g``'s device."""
+    thetas = g._tensor(batch_thetas(g.get_parameters(include_frozen=True),
+                                    cfg["rows"], cfg["spread"], cfg["seed"]))
+    return (thetas, *g.engine.init_mu_var(thetas, g._tensor(g.y)))
+
+
+def phase_batch(torch, pkg, oracle, ck):
+    """``elbo_fit_batch`` of the 13 rows of ``BATCH`` on the card, against
+    the port's single-θ fit of each row on the card and the JAX package's
+    cached ``vmap(elbo_fit)``; walker-fits per second against 13 sequential
+    fits, peak memory."""
+    ref = oracle["batch"]
+    rows, max_iter = BATCH["rows"], BATCH["max_iter"]
+    g = headline_problem(pkg, device="cuda")
+    eng, data = g.engine, g._data()
+    thetas, mu0, var0 = _batch_inputs(g, BATCH)
+    eng.elbo_fit_batch(thetas, *data, mu0, var0, 4)              # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    before = ck.LAUNCHES["kernel_matrix"]
+    (elbo, mu, var, n_iter, conv), wall = _timed(
+        torch, lambda: eng.elbo_fit_batch(thetas, *data, mu0, var0,
+                                          max_iter))
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counted = dict(ck.LAUNCHES)
+    singles, wall_seq = _timed(torch, lambda: [
+        eng.elbo_fit(thetas[w], *data, mu0[w], var0[w], max_iter)
+        for w in range(rows)])
+    # the sequential fits are the comparison, not the batched path
+    ck.LAUNCHES.update(counted)
+    elbo, mu, var = (a.cpu().numpy() for a in (elbo, mu, var))
+    n_iter, conv = n_iter.cpu().tolist(), conv.cpu().tolist()
+    e1 = np.array([float(s[0]) for s in singles])
+    it1 = [s[3] for s in singles]
+    mu_err = max(_rel_state_err(mu[w], singles[w][1].cpu().numpy())
+                 for w in range(rows))
+    var_err = max(_rel_state_err(var[w], singles[w][2].cpu().numpy())
+                  for w in range(rows))
+    e_single = float(np.max(np.abs(elbo - e1) / np.abs(e1)))
+    e_jax = float(np.max(np.abs(elbo - ref["elbo"]) /
+                         np.abs(ref["elbo"])))
+    jax_state = max(
+        _rel_state_err(state_summary(mu[w], var[w], ref["stride"])[key],
+                       ref[key][w])
+        for w in range(rows) for key in ("mu", "var"))
+    sweeps = max(n_iter)
+    print(f"batch: elbo_fit_batch of {rows} rows, N={N_MAIN}: {wall:.3f} s, "
+          f"{sweeps} batched sweeps ({1e3 * wall / sweeps:.3f} ms each; rows "
+          f"stop at {n_iter}), peak device memory {peak:.3f} GiB, B1 "
+          f"launches {launched}; {rows} sequential elbo_fit calls "
+          f"{wall_seq:.3f} s ({sum(it1)} sweeps, "
+          f"{1e3 * wall_seq / sum(it1):.3f} ms each): walker-fits per second "
+          f"{rows / wall:.3f} batched against {rows / wall_seq:.3f} "
+          f"sequential ({wall_seq / wall:.3f}x)", flush=True)
+    _check("batch", [
+        ("n_iter per row, batch vs single", n_iter == it1,
+         f"{n_iter} vs {it1}"),
+        ("ELBO batch vs single", e_single <= ELBO_RTOL,
+         f"max rel {e_single:.3e} (limit {ELBO_RTOL})"),
+        ("state batch vs single", max(mu_err, var_err) <= STATE_TOL,
+         f"mu {mu_err:.3e}, var {var_err:.3e} (limit {STATE_TOL})"),
+        ("n_iter and converged vs jax",
+         n_iter == ref["n_iter"] and conv == ref["converged"],
+         f"{n_iter} vs {ref['n_iter']}"),
+        ("ELBO vs jax", e_jax <= ELBO_RTOL,
+         f"max rel {e_jax:.3e} (limit {ELBO_RTOL})"),
+        ("state vs jax", jax_state <= STATE_TOL,
+         f"{jax_state:.3e} (limit {STATE_TOL})"),
+        ("B1 launches (one per matrix of every row)", launched == 4 * rows,
+         f"{launched} vs {4 * rows}"),
+    ])
+
+
+def _x_rel(x, ref):
+    ref = np.asarray(ref, dtype=float)
+    return float(np.max(np.abs(np.asarray(x) - ref) / np.abs(ref)))
+
+
+def phase_optimize_device(torch, pkg, oracle, ck):
+    """``optimize_device`` of the headline model on the card: ``OPT``
+    alone, and with ``OPT_RESTARTS`` restarts (the cut call against the
+    cached JAX result, the full one timed)."""
+    ref = oracle["optimize_device"]
+    n_free = 13
+    out = {}
+    for name, kw in (
+            ("single", OPT),
+            ("restarts, cut", {**OPT, "max_iter": OPT_RESTART_ORACLE_ITERS,
+                               "n_restarts": OPT_RESTARTS}),
+            ("restarts", {**OPT, "n_restarts": OPT_RESTARTS})):
+        g = headline_problem(pkg, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        before = ck.LAUNCHES["kernel_matrix"]
+        res, wall = _timed(torch, lambda: g.optimize_device(**kw))
+        launched = ck.LAUNCHES["kernel_matrix"] - before
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = (res, wall, launched)
+        print(f"optimize_device {name} {kw}: {wall:.3f} s, nit "
+              f"{res['nit']}, nfev {res['nfev']}, success {res['success']}, "
+              f"fun {res['fun']!r}, ELBO at the optimum {res['elbo']!r}; "
+              f"{res['nit'] / wall:.3f} iterations per second (the final "
+              f"ELBOcalc included), peak device memory {peak:.3f} GiB, B1 "
+              f"launches {launched}", flush=True)
+    checks = []
+    for name, key in (("single", "single"), ("restarts, cut", "restarts")):
+        res, r = out[name][0], ref[key]
+        checks += [
+            (f"{name}: x vs jax", _x_rel(res["x"], r["x"]) <= ADAM_X_RTOL,
+             f"max rel {_x_rel(res['x'], r['x']):.3e} (limit "
+             f"{ADAM_X_RTOL})"),
+            (f"{name}: nit, nfev, success vs jax",
+             (res["nit"], res["nfev"], res["success"]) ==
+             (r["nit"], r["nfev"], r["success"]),
+             f"{res['nit']}, {res['nfev']} vs {r['nit']}, {r['nfev']}"),
+            (f"{name}: fun vs jax", _rel(res["fun"], r["fun"]) <= ELBO_RTOL,
+             f"rel {_rel(res['fun'], r['fun']):.3e}")]
+    res, _, launched = out["single"]
+    # 14 vertices, then 17 candidates per iteration, 4 matrices each, and
+    # the final fit's 4
+    expect = 4 * ((n_free + 1) + (n_free + 4) * (res["nit"] - 1)) + 4
+    checks.append(("single: B1 launches", launched == expect,
+                   f"{launched} vs {expect}"))
+    res = out["restarts"][0]
+    checks.append(("restarts: finite", np.isfinite(res["fun"])
+                   and np.all(np.isfinite(res["x"])), f"{res['fun']!r}"))
+    _check("optimize_device", checks)
+
+
+def phase_mcmc(torch, pkg, oracle, ck):
+    """``mcmc`` of the headline model on the card, 26 walkers: the host
+    loop with scipy priors against the cached JAX host-loop chain (the
+    cut run in full, the first steps of the full run), and the device
+    chain with the port's priors."""
+    from scipy import stats
+
+    from gpyrn_tpu_torch.inference import priors as port_priors
+    ref = oracle["mcmc"]
+    k = ref["niter"]
+    runs = {}
+    for name, niter, scipy_priors in (("host loop, cut", k, True),
+                                      ("host loop", MCMC["niter"], True),
+                                      ("device chain", MCMC["niter"], False)):
+        g = headline_problem(pkg, device="cuda")
+        priors = headline_priors(
+            g, (lambda m, s: stats.lognorm(s=s, scale=np.exp(m)))
+            if scipy_priors else port_priors.LogNormal)
+        torch.cuda.reset_peak_memory_stats()
+        before = ck.LAUNCHES["kernel_matrix"]
+        res, wall = _timed(torch, lambda: g.mcmc(
+            priors, p0=g.get_parameters(), **{**MCMC, "niter": niter}))
+        launched = ck.LAUNCHES["kernel_matrix"] - before
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name] = res
+        print(f"mcmc {name}: {res.chain.shape[0]} steps of "
+              f"{res.chain.shape[1]} walkers in {wall:.3f} s "
+              f"({res.chain.shape[0] / wall:.3f} ensemble steps per second, "
+              f"the initial fit of every walker included), acceptance "
+              f"{res.acceptance:.4f}, max log-prob "
+              f"{float(np.max(res.log_prob)):.4f}, peak device memory "
+              f"{peak:.3f} GiB, B1 launches {launched}", flush=True)
+    cut, full, dev = (runs[n] for n in ("host loop, cut", "host loop",
+                                        "device chain"))
+    chain_ref = np.asarray(ref["chain"])
+    lp_ref = np.asarray(ref["log_prob"])
+    chain_err = _rel_state_err(cut.chain, chain_ref)
+    lp_err = float(np.max(np.abs(cut.log_prob - lp_ref) / np.abs(lp_ref)))
+    _check("mcmc", [
+        ("host loop chain vs jax", chain_err <= STATE_TOL,
+         f"{chain_err:.3e} (limit {STATE_TOL})"),
+        ("host loop log-prob vs jax", lp_err <= ELBO_RTOL,
+         f"max rel {lp_err:.3e} (limit {ELBO_RTOL})"),
+        ("host loop acceptance vs jax", cut.acceptance == ref["acceptance"],
+         f"{cut.acceptance!r} vs {ref['acceptance']!r}"),
+        ("the full run's first steps are the cut run's",
+         np.array_equal(full.chain[:k], cut.chain)
+         and np.array_equal(full.log_prob[:k], cut.log_prob),
+         f"{k} steps"),
+        ("device chain: finite log-probs",
+         bool(np.all(np.isfinite(dev.log_prob))), f"{dev.log_prob.shape}"),
+        ("device chain: acceptance in (0, 1)", 0 < dev.acceptance < 1,
+         f"{dev.acceptance:.4f}"),
+    ])
+
+
+def phase_batch_elbo(torch, pkg, oracle):
+    """``evidence.batch_elbo`` over the 8 rows of ``EVIDENCE`` on the card
+    against the cached JAX values."""
+    from gpyrn_tpu_torch.inference.evidence import batch_elbo
+    ref = oracle["batch_elbo"]
+    g = headline_problem(pkg, device="cuda")
+    thetas = batch_thetas(g.get_parameters(include_frozen=True),
+                          EVIDENCE["rows"], EVIDENCE["spread"],
+                          EVIDENCE["seed"])
+    elbo, wall = _timed(torch, lambda: batch_elbo(g, thetas,
+                                                  EVIDENCE["max_iter"]))
+    err = float(np.max(np.abs(elbo - ref["elbo"]) / np.abs(ref["elbo"])))
+    print(f"batch_elbo: {EVIDENCE['rows']} rows in {wall:.3f} s", flush=True)
+    _check("batch_elbo", [
+        ("ELBO vs jax", err <= ELBO_RTOL,
+         f"max rel {err:.3e} (limit {ELBO_RTOL})")])
+
+
+def trace_batched_sweep(torch, pkg):
+    """One traced sweep of the 13-row batch and one of its first row alone
+    (headline model, N=1000, float64, the state from the heuristic start):
+    wall, device time, launches, idle share."""
+    g = headline_problem(pkg, device="cuda")
+    eng, data = g.engine, g._data()
+    thetas, mu0, var0 = _batch_inputs(g, BATCH)
+    for what, th, mu, var in (
+            (f"batched sweep ({BATCH['rows']} rows)", thetas, mu0, var0),
+            ("single-row sweep", thetas[0], mu0[0], var0[0])):
+        prepared = eng._prepare(th, *data)
+        (muF, muW), (varF, varW) = eng._u_split(mu), eng._u_split(var)
+
+        def sweep():
+            return eng._sweep(*prepared, muF, varF, muW, varW)
+
+        sweep()
+        wall, kernels = _traced(torch, sweep)
+        _trace_summary(what, wall, kernels, {})
+    # a 68-row objective call of optimize_device with 4 restarts (the
+    # population's candidates of one iteration, 3 sweeps): the host's and
+    # the card's ms of its _prepare against those of the whole call
+    W = OPT_RESTARTS * 17
+    th = g._tensor(batch_thetas(g.get_parameters(include_frozen=True), W,
+                                BATCH["spread"], BATCH["seed"]))
+    mu, var = eng.init_mu_var(th, g._tensor(g.y))
+    prep = _host_ms(torch, lambda: eng._prepare(th, *data), 20)
+    call = _host_ms(torch, lambda: eng.elbo_fixed_batch(
+        th, *data, mu, var, OPT["n_sweeps"]), 20)
+    print(f"objective call of {W} rows ({OPT['n_sweeps']} sweeps, N={N_MAIN}, "
+          f"float64), ms per call enqueued (until the card is done): "
+          f"_prepare {prep[0]:.4f} ({prep[1]:.4f}), the whole call "
+          f"{call[0]:.4f} ({call[1]:.4f}); _prepare's share "
+          f"{prep[1] / call[1]:.4f}", flush=True)
+
+
 def trace_grad_path(torch, pkg):
     """One traced float64 30-sweep ``elbo_value_and_grad`` of the headline
     model (after a warm-up call): device time, idle share, the shares of
@@ -1457,6 +1857,19 @@ def phase_trainer(torch, pkg, oracle):
         raise AssertionError("trainer: optimize_adam disagrees with jax")
 
 
+def _child(arg):
+    """The output lines of this script run with ``arg`` in a fresh
+    process; its failure fails the run."""
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), arg],
+                           capture_output=True, text=True)
+    sys.stderr.write(child.stderr)
+    if child.returncode != 0:
+        sys.stdout.write(child.stdout)
+        raise AssertionError(f"the profiling process ({arg}) failed with "
+                             f"exit code {child.returncode}")
+    return child.stdout.strip().splitlines()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1469,6 +1882,9 @@ def main():
     from gpyrn_tpu_torch.ops import linalg as lin
     if sys.argv[1:] == [PROFILE_ARG]:
         profile_main(torch, pkg, ck, lin)
+        return
+    if sys.argv[1:] == [PROFILE_BATCH_ARG]:
+        trace_batched_sweep(torch, pkg)
         return
 
     print("== phase 1: environment", flush=True)
@@ -1547,27 +1963,40 @@ def main():
         raise AssertionError("the implicit path never launched one of its "
                              f"kernels: {implicit_launches}")
 
-    print("== phase 16: traced calls and the kernels' times, in a fresh "
-          "process", flush=True)
-    child = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            PROFILE_ARG], capture_output=True, text=True)
-    lines = child.stdout.strip().splitlines()
-    sys.stderr.write(child.stderr)
-    if child.returncode != 0:
-        sys.stdout.write(child.stdout)
-        raise AssertionError(f"the profiling process failed with exit code "
-                             f"{child.returncode}")
+    print("== phase 16: traced calls and the kernels' times, in fresh "
+          "processes", flush=True)
+    lines = _child(PROFILE_ARG)
     print("\n".join(lines[:-1]), flush=True)
     records = json.loads(lines[-1])["records"]
+    print("\n".join(_child(PROFILE_BATCH_ARG)), flush=True)
     record, grad_record = records["kernel_matrix"], \
         records["kernel_matrix_grad"]
+
+    # the batched paths: the θ-batched fit, Nelder-Mead on the device, the
+    # ensemble sampler and the evidence batch
+    ck.reset_launch_counts()
+    print("== phase 17: batched fit, headline model, 13 rows", flush=True)
+    phase_batch(torch, pkg, oracle, ck)
+    print("== phase 18: optimize_device, headline model", flush=True)
+    phase_optimize_device(torch, pkg, oracle, ck)
+    print("== phase 19: mcmc (ensemble sampler), headline model, 26 "
+          "walkers", flush=True)
+    phase_mcmc(torch, pkg, oracle, ck)
+    print("== phase 20: evidence.batch_elbo, headline model", flush=True)
+    phase_batch_elbo(torch, pkg, oracle)
+    batch_launches = dict(ck.LAUNCHES)
+    print(f"batched path launches: {batch_launches}", flush=True)
+    if batch_launches["kernel_matrix"] == 0:
+        raise AssertionError("the batched path never launched "
+                             "kernel_matrix")
 
     kernels = []
     for kname, rec in (("kernel_matrix", record),
                        ("kernel_matrix_grad", grad_record)):
         by_path = {"fit": fit_launches[kname], "grad": grad_launches[kname],
                    "mixed": mixed_launches[kname],
-                   "implicit": implicit_launches[kname]}
+                   "implicit": implicit_launches[kname],
+                   "batch": batch_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",

@@ -13,7 +13,13 @@
 * its ``elbo_grad(method='implicit')`` from the heuristic start, with the
   residuals of that call;
 * three ``optimize_adam(grad='implicit')`` steps (the adjoint solve cut
-  as ``chip_smoke.ADAM_IMPLICIT`` says).
+  as ``chip_smoke.ADAM_IMPLICIT`` says);
+* the batched paths: ``vmap(elbo_fit)`` over the 13 rows of
+  ``chip_smoke.BATCH``, ``optimize_device`` with ``chip_smoke.OPT`` and
+  with ``chip_smoke.OPT_RESTARTS`` restarts (cut to
+  ``OPT_RESTART_ORACLE_ITERS`` iterations), the ensemble sampler's host
+  loop with scipy priors (cut to ``MCMC_ORACLE_STEPS`` steps) and
+  ``evidence.batch_elbo`` over the rows of ``chip_smoke.EVIDENCE``.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_oracle.py [--all]
 
@@ -118,6 +124,74 @@ def adam_implicit_section(gpyrn_tpu):
             "fun": float(res["fun"]), "elbo": float(res["elbo"])}
 
 
+def batch_section(gpyrn_tpu):
+    import jax
+    import jax.numpy as jnp
+    g = chip_smoke.headline_problem(gpyrn_tpu)
+    eng = g.engine
+    cfg = chip_smoke.BATCH
+    thetas = chip_smoke.batch_thetas(g.get_parameters(include_frozen=True),
+                                     cfg["rows"], cfg["spread"], cfg["seed"])
+    t = np.asarray(g.time, dtype=float)
+
+    def one(th):
+        mu0, var0 = eng.init_mu_var(th, g.y)
+        return eng.elbo_fit(th, t, g.y, g.yerr2, mu0, var0,
+                            cfg["max_iter"])
+
+    elbo, mu, var, n_iter, conv, _ = jax.jit(jax.vmap(one))(
+        jnp.asarray(thetas))
+    rows = [chip_smoke.state_summary(np.asarray(m), np.asarray(v), STRIDE)
+            for m, v in zip(mu, var)]
+    return {"N": chip_smoke.N_MAIN, **cfg, "stride": STRIDE,
+            "elbo": np.asarray(elbo).tolist(),
+            "n_iter": np.asarray(n_iter).tolist(),
+            "converged": np.asarray(conv).tolist(),
+            "mu": [r["mu"] for r in rows], "var": [r["var"] for r in rows]}
+
+
+def _opt_result(res):
+    return {"x": np.asarray(res["x"]).tolist(), "fun": float(res["fun"]),
+            "nit": int(res["nit"]), "nfev": int(res["nfev"]),
+            "success": bool(res["success"]), "elbo": float(res["elbo"])}
+
+
+def optimize_device_section(gpyrn_tpu):
+    g = chip_smoke.headline_problem(gpyrn_tpu)
+    single = _opt_result(g.optimize_device(**chip_smoke.OPT))
+    g = chip_smoke.headline_problem(gpyrn_tpu)
+    cut = {**chip_smoke.OPT,
+           "max_iter": chip_smoke.OPT_RESTART_ORACLE_ITERS,
+           "n_restarts": chip_smoke.OPT_RESTARTS}
+    restarts = _opt_result(g.optimize_device(**cut))
+    return {"N": chip_smoke.N_MAIN, "single": {**chip_smoke.OPT, **single},
+            "restarts": {**cut, **restarts}}
+
+
+def mcmc_section(gpyrn_tpu):
+    from scipy import stats
+    g = chip_smoke.headline_problem(gpyrn_tpu)
+    priors = chip_smoke.headline_priors(
+        g, lambda m, s: stats.lognorm(s=s, scale=np.exp(m)))
+    cfg = {**chip_smoke.MCMC, "niter": chip_smoke.MCMC_ORACLE_STEPS}
+    res = g.mcmc(priors, p0=g.get_parameters(), **cfg)
+    return {"N": chip_smoke.N_MAIN, **cfg,
+            "prior_width": chip_smoke.PRIOR_WIDTH,
+            "chain": res.chain.tolist(), "log_prob": res.log_prob.tolist(),
+            "elbo": res.elbo.tolist(), "acceptance": float(res.acceptance)}
+
+
+def batch_elbo_section(gpyrn_tpu):
+    from gpyrn_tpu.inference.evidence import batch_elbo
+    g = chip_smoke.headline_problem(gpyrn_tpu)
+    cfg = chip_smoke.EVIDENCE
+    thetas = chip_smoke.batch_thetas(g.get_parameters(include_frozen=True),
+                                     cfg["rows"], cfg["spread"], cfg["seed"])
+    return {"N": chip_smoke.N_MAIN, **cfg,
+            "elbo": np.asarray(batch_elbo(g, thetas,
+                                          cfg["max_iter"])).tolist()}
+
+
 def main():
     import gpyrn_tpu
     import jax
@@ -134,7 +208,13 @@ def main():
         "five unrolled Adam steps (adam), the mixed-precision fit with "
         "its default settings and polished to the float64 fixed point "
         "(mixed), the implicit gradient of the converged ELBO (implicit) "
-        "and three implicit Adam steps (adam_implicit)")
+        "and three implicit Adam steps (adam_implicit); the batched paths: "
+        "vmap(elbo_fit) over 13 perturbed parameter rows (batch), "
+        "optimize_device with 3 sweeps and 30 iterations, and with 4 "
+        "restarts cut to 8 iterations (optimize_device), the ensemble "
+        "sampler's host loop with 26 walkers and scipy priors cut to 2 "
+        "steps of the 10 the card runs (mcmc), and evidence.batch_elbo "
+        "over 8 rows (batch_elbo)")
     out["_command"] = COMMAND
     out.setdefault("_jax", jax.__version__)
     sections = list(fit_sections(gpyrn_tpu)) + [
@@ -142,7 +222,11 @@ def main():
         ("adam", lambda: adam_section(gpyrn_tpu)),
         ("mixed", lambda: mixed_section(gpyrn_tpu)),
         ("implicit", lambda: implicit_section(gpyrn_tpu)),
-        ("adam_implicit", lambda: adam_implicit_section(gpyrn_tpu))]
+        ("adam_implicit", lambda: adam_implicit_section(gpyrn_tpu)),
+        ("batch", lambda: batch_section(gpyrn_tpu)),
+        ("optimize_device", lambda: optimize_device_section(gpyrn_tpu)),
+        ("mcmc", lambda: mcmc_section(gpyrn_tpu)),
+        ("batch_elbo", lambda: batch_elbo_section(gpyrn_tpu))]
     for name, section in sections:
         if name in out:
             print(name, "kept", flush=True)

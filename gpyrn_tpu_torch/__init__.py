@@ -2,9 +2,11 @@
 
 Port of :mod:`gpyrn_tpu` (JAX, TPU) to PyTorch on an NVIDIA H100: the
 mean-field fit in float64 and in mixed precision, the posterior
-predictive, and the ELBO's unrolled and implicit gradients
+predictive, the ELBO's unrolled and implicit gradients, and the
+searches over a batch of hyperparameter vectors
 (``inference → set_components → ELBOcalc → predict``, ``elbo_grad``,
-``optimize_adam``, ``optimize``).  The dense kernel matrices and their
+``optimize_adam``, ``optimize``, ``optimize_device``, ``mcmc``,
+``inference.evidence.batch_elbo``).  The dense kernel matrices and their
 backward come from hand-written CUDA kernels (``csrc/kernel_matrix.cu``),
 built with nvcc at first use.  The package imports torch and never jax.
 

@@ -6,9 +6,10 @@ Port of a subset of :mod:`gpyrn_tpu.inference.meanfield`:
 thaw, ``ELBO`` / ``ELBOcalc`` (float64, and ``precision='mixed'``: a
 float32 bulk fit and a float64 polish) / ``nELBO``, ``elbo_grad`` and
 ``optimize_adam`` (unrolled, and the implicit gradient of the converged
-ELBO), ``optimize`` (scipy), ``predict`` / ``_Prediction``, ``sample``,
-and ``save`` / ``load``, over the engine of
-:mod:`gpyrn_tpu_torch.models.gprn`.
+ELBO), ``optimize`` (scipy), ``optimize_device`` (Nelder-Mead on the
+device over the θ-batched ELBO), ``mcmc`` (the native ensemble sampler;
+emcee when installed), ``predict`` / ``_Prediction``, ``sample``, and
+``save`` / ``load``, over the engine of :mod:`gpyrn_tpu_torch.models.gprn`.
 
 The device is the card (``device="cuda"``) unless the caller asks for
 another (``device="cpu"``); it is never detected, and nothing touches
@@ -707,6 +708,68 @@ class inference:
         self.set_parameters(res.x)
         return res
 
+    def optimize_device(self, vars=None, n_sweeps=30, xatol=1e-4,
+                        fatol=1e-4, max_iter=None, n_restarts=1,
+                        spread=0.1, seed=0, adaptive=False):
+        """``optimize()`` without the host in the loop: scipy-trajectory
+        Nelder-Mead (inference/neldermead.py) over the non-frozen
+        hyperparameters, the simplex on the device and every iteration's
+        n + 4 candidates fitted in one batched call.
+
+        The objective is the negative ELBO after ``n_sweeps``
+        coordinate-ascent sweeps from the current variational state
+        (``engine.elbo_fixed_batch``): a deterministic, batched objective
+        (unlike ``nELBO``, whose cache warm-start makes each call depend
+        on the previous one).  With ``n_restarts > 1``, that many
+        simplexes start from log-normal-perturbed copies of the current
+        parameters (``spread`` in log units, numpy ``default_rng(seed)``,
+        the first copy unperturbed) and run as one population; the best
+        restart wins.
+
+        Returns a dict with scipy-style fields ``x``/``fun``/``nit``/
+        ``nfev``/``success`` plus ``elbo`` at the optimum (the variational
+        cache is refreshed there)."""
+        from gpyrn_tpu_torch.inference.neldermead import (
+            NMResult, nelder_mead, nelder_mead_multistart)
+        self._require_components()
+        self._apply_vars_selection(vars)
+        free_idx = np.flatnonzero(~self.frozen_mask)
+        if free_idx.size == 0:
+            raise ValueError("all parameters are frozen")
+        base = self._theta()
+        mu0, var0 = self._resolve_mu_var('previous', 'previous', base)
+        eng, data = self.engine, self._data()
+        idx = torch.as_tensor(free_idx, device=self.device)
+
+        def objective_batch(X):
+            theta = base.expand(X.shape[0], -1).clone()
+            theta[:, idx] = X
+            return -eng.elbo_fixed_batch(theta, *data, mu0, var0,
+                                         int(n_sweeps))
+
+        x0 = base[idx]
+        if n_restarts > 1:
+            rng = np.random.default_rng(seed)
+            x0_np = x0.cpu().numpy()
+            x0s = x0_np[None, :] * np.exp(
+                spread * rng.standard_normal((n_restarts, free_idx.size)))
+            x0s[0] = x0_np              # keep the unperturbed start
+            res, best = nelder_mead_multistart(
+                None, self._tensor(x0s), xatol=xatol, fatol=fatol,
+                max_iter=max_iter, adaptive=adaptive,
+                batched_f=objective_batch)
+            res = NMResult(*(a[int(best)] for a in res))
+        else:
+            res = nelder_mead(None, x0, xatol=xatol, fatol=fatol,
+                              max_iter=max_iter, adaptive=adaptive,
+                              batched_f=objective_batch)
+        x_best = res.x.cpu().numpy()
+        self.set_parameters(x_best)
+        elbo, *_ = self.ELBOcalc(mu='previous', var='previous')
+        return {'x': x_best, 'fun': float(res.fun), 'nit': int(res.nit),
+                'nfev': int(res.nfev), 'success': bool(res.converged),
+                'elbo': elbo}
+
     def optimize_adam(self, vars=None, n_steps=200, learning_rate=5e-2,
                       n_sweeps=30, transform='log', callback=None,
                       grad='unroll', fit_tol=None, fit_max_iter=200,
@@ -811,6 +874,115 @@ class inference:
         elbo, *_ = self.ELBOcalc(mu='previous', var='previous')
         return {'fun': best_v, 'x': theta[free_np], 'elbo': elbo,
                 'n_steps': n_steps}
+
+    # ------------------------------------------------------------------
+    # MCMC
+    # ------------------------------------------------------------------
+
+    def mcmc(self, priors, p0=None, vars=None, niter=500, sampler='native',
+             checkpoint=None, **kwargs):
+        """Sample the hyperparameter posterior with the ELBO as the
+        log-likelihood surrogate.
+
+        ``sampler='native'`` runs the ensemble sampler of
+        :mod:`gpyrn_tpu_torch.inference.ensemble` (all walkers' ELBO fits
+        batched on the device; the device chain when every prior comes
+        from :mod:`gpyrn_tpu_torch.inference.priors`, else the host loop);
+        ``sampler='emcee'`` drives emcee if it is installed;
+        ``sampler='hmc'`` is not ported yet and raises."""
+        from gpyrn_tpu_torch.inference.ensemble import run_ensemble
+        self._require_components()
+        self._apply_vars_selection(vars)
+
+        all_names = np.array(list(self.parameters_dict.keys()))
+        free_names = all_names[~self.frozen_mask]
+        ndim = len(free_names)
+        nwalkers_arg = kwargs.pop('nwalkers', None)
+        nwalkers = 2 * ndim if nwalkers_arg is None else nwalkers_arg
+
+        missing = [n for n in free_names if n not in priors]
+        if missing:
+            raise ValueError(f'missing priors for parameters: {missing}')
+
+        if sampler == 'hmc':
+            raise NotImplementedError(
+                "sampler='hmc' (Hamiltonian Monte Carlo on the ELBO "
+                "gradient, inference/hmc.py) is not ported yet: ROADMAP A10")
+        if sampler == 'emcee':
+            return self._mcmc_emcee(priors, free_names, p0, niter, **kwargs)
+
+        return run_ensemble(self, priors, free_names, p0=p0, niter=niter,
+                            nwalkers=nwalkers, checkpoint=checkpoint,
+                            **kwargs)
+
+    def _mcmc_emcee(self, priors, free_names, p0, niter, **kwargs):
+        try:
+            from emcee import EnsembleSampler, backends
+            from emcee.utils import sample_ellipsoid
+        except ImportError as e:
+            raise ImportError(
+                "emcee is not installed; use sampler='native'") from e
+
+        def prior_rvs():
+            return np.array([priors[name].rvs() for name in free_names])
+
+        def logprior(parameters):
+            return float(sum(np.asarray(priors[name].logpdf(par))
+                             for par, name in zip(parameters, free_names)))
+
+        def logposterior(parameters):
+            lp = logprior(parameters)
+            if np.isneginf(lp):
+                return -np.inf, -np.inf
+            elbo = -self.nELBO(parameters, max_iter=100)
+            return lp + elbo, elbo
+
+        ndim = len(free_names)
+        nwalkers = 2 * ndim
+        if p0 is None:
+            p0 = np.array([prior_rvs() for _ in range(nwalkers)])
+        else:
+            sigma = []
+            for name in free_names:
+                try:
+                    sigma.append(priors[name].std())
+                except TypeError:
+                    sigma.append(priors[name].std)
+            p0 = sample_ellipsoid(p0, np.diag(sigma) / 100, size=nwalkers)
+            for i, pw in enumerate(p0):
+                if np.isneginf(logprior(pw)):
+                    p0[i] = prior_rvs()
+
+        # the reference's pre-run diagnostics
+        progress = kwargs.pop('progress', True)
+        if progress:
+            print('initial values for parameters are set')
+            _start = time_module.time()
+            _ = [logposterior(pw) for pw in p0]
+            _end = time_module.time()
+            print()
+            print(f'evaluation for initial values took '
+                  f'{_end - _start:.0f} sec')
+            print('- adjust your expectations accordingly')
+
+        be = backends.HDFBackend(kwargs.pop('filename', 'gprn.h5'))
+        be.reset(nwalkers, ndim)
+        smplr = EnsembleSampler(nwalkers, ndim, logposterior, backend=be)
+
+        old_tau = np.inf
+        # the reference's progress bar and per-10-step log_prob print
+        for sample in smplr.sample(p0, iterations=niter, progress=progress):
+            if smplr.iteration % 10:
+                continue
+            if progress:
+                print(sample.log_prob.max())
+            tau = smplr.get_autocorr_time(tol=0)
+            converged = np.all(tau * 100 < smplr.iteration)
+            converged &= np.all(np.abs(old_tau - tau) / tau < 0.01)
+            if converged:
+                break
+            old_tau = tau
+        return smplr
 
     # ------------------------------------------------------------------
     # prediction

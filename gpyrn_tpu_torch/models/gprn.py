@@ -13,6 +13,15 @@ chunk in ``fit_state_stall``).  The fixed-count sweeps are a plain loop
 (the JAX package's masked power-of-two sweep bucketing is a compile-count
 device of XLA and is not ported), differentiated by autograd.
 
+A batch of hyperparameter vectors θ (W, n_parameters) is a leading
+dimension of every tensor of the sweep, where the JAX package maps the
+single-θ functions with ``jax.vmap``: the lattice of all rows is one
+``kernel_matrix_rows`` call, the factorizations one stack, and
+``elbo_fit_batch`` / ``elbo_fixed_batch`` run the same sweep code as the
+single-θ entry points (which call it with no batch dimension).
+``torch.func.vmap`` is not used: it cannot trace the kernel's ctypes
+launch or the fit's data-dependent loop.
+
 Numerical-parity notes (the JAX package's, ``gpyrn_tpu/models/gprn.py:16-33``):
 
 * training nugget 1e-6, prediction nugget 1.25e-12;
@@ -41,8 +50,9 @@ import torch
 
 from gpyrn_tpu_torch.ops import blocked as _blocked
 from gpyrn_tpu_torch.ops import means as means_mod
-from gpyrn_tpu_torch.ops.linalg import (PREDICT_NUGGET, TRAIN_NUGGET,
-                                        cross_kernel_matrix, kernel_diag,
+from gpyrn_tpu_torch.ops.linalg import (F32_JITTER_MULT, PREDICT_NUGGET,
+                                        TRAIN_NUGGET, cross_kernel_matrix,
+                                        kernel_diag, kernel_matrix_rows,
                                         kernel_matrix_stack)
 
 __all__ = [
@@ -113,28 +123,46 @@ def pack_parameters(nodes, weights, means, jitters) -> np.ndarray:
 
 
 def unpack_parameters(spec: GPRNSpec, theta):
-    """Split a flat parameter tensor into per-component slices
-    (node params, weight params, mean params, jitters)."""
+    """Split a parameter tensor (..., n_parameters) along its last axis
+    into per-component slices (node params, weight params, mean params,
+    jitters), each keeping the leading batch dimensions."""
     pos = 0
     node_p = []
     for n in spec.n_node_pars:
-        node_p.append(theta[pos:pos + n])
+        node_p.append(theta[..., pos:pos + n])
         pos += n
     weight_p = []
     for n in spec.n_weight_pars:
-        weight_p.append(theta[pos:pos + n])
+        weight_p.append(theta[..., pos:pos + n])
         pos += n
     mean_p = []
     for n in spec.n_mean_pars:
-        mean_p.append(theta[pos:pos + n])
+        mean_p.append(theta[..., pos:pos + n])
         pos += n
-    jitters = theta[pos:pos + spec.p]
+    jitters = theta[..., pos:pos + spec.p]
     return node_p, weight_p, mean_p, jitters
 
 
 def _cho_solve(L, b):
     """Solve (L Lᵀ) x = b for a batch of lower factors and vectors."""
     return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+
+
+def _on_stack(fn, A):
+    """``fn`` of a (B, N, N) stack applied to A of shape (..., N, N): the
+    leading dimensions are flattened into one stack and restored on every
+    output."""
+    lead = A.shape[:-2]
+    return tuple(o.reshape(*lead, *o.shape[1:])
+                 for o in fn(A.reshape(-1, *A.shape[-2:])))
+
+
+def _rel_std3_stop(hist):
+    """The reference stopping rule on the last three ELBO values (the last
+    axis of ``hist``): relative std < 1e-3, and not exactly 0."""
+    crit = torch.abs(torch.std(hist, dim=-1, correction=0) /
+                     torch.mean(hist, dim=-1))
+    return (crit < 1e-3) & (crit != 0)
 
 
 class Engine:
@@ -153,61 +181,94 @@ class Engine:
 
     @staticmethod
     def _core(params_list, maps):
+        """Each component's core parameters from its trainable slice
+        (..., n); a map, written for one parameter vector, runs row by
+        row."""
         if maps is None:
             return params_list
-        return [m(pp) if m is not None else pp
+        return [pp if m is None else torch.stack(
+                    [m(r) for r in pp.reshape(-1, pp.shape[-1])]
+                ).reshape(*pp.shape[:-1], -1)
                 for m, pp in zip(maps, params_list)]
 
-    def _build_matrices(self, theta, t):
+    def _lattice(self, theta, t, jitter_mult=F32_JITTER_MULT):
+        """The (..., q·(1+p), N, N) prior lattice of every row of ``theta``
+        (..., n_parameters), nodes then weights per row: the components'
+        parameters sliced once for all rows, and one ``kernel_matrix_rows``
+        call, so on the card B1 writes every matrix into one buffer, its
+        parameters rows of ``theta`` (no host read)."""
         spec = self.spec
-        node_p, weight_p, _, jitters = unpack_parameters(spec, theta)
-        node_c = self._core(node_p, self.node_maps)
-        weight_c = self._core(weight_p, self.weight_maps)
-        Kf = kernel_matrix_stack(spec.node_structs, node_c, t, TRAIN_NUGGET)
-        Kw_flat = kernel_matrix_stack(spec.weight_structs, weight_c, t,
-                                      TRAIN_NUGGET)
-        return Kf, Kw_flat, jitters
+        batch = theta.shape[:-1]
+        node_p, weight_p, _, _ = unpack_parameters(
+            spec, theta.reshape(-1, theta.shape[-1]))
+        K = kernel_matrix_rows(spec.node_structs + spec.weight_structs,
+                               self._core(node_p, self.node_maps) +
+                               self._core(weight_p, self.weight_maps),
+                               t, TRAIN_NUGGET, jitter_mult=jitter_mult)
+        return K.reshape(*batch, *K.shape[1:])
 
     def _mean_values(self, theta, t):
-        _, _, mean_p, _ = unpack_parameters(self.spec, theta)
-        rows = []
-        for s, mp in zip(self.spec.mean_structs, mean_p):
-            if s is None:
-                rows.append(torch.zeros(t.shape, dtype=t.dtype,
-                                        device=t.device))
-            else:
-                rows.append(means_mod.evaluate(s, mp, t))
-        return torch.stack(rows)          # (p, n_t)
+        """The (..., p, n_t) mean functions of every row of ``theta``."""
+        batch, p = theta.shape[:-1], self.spec.p
+        if all(s is None for s in self.spec.mean_structs):
+            return torch.zeros((*batch, p, t.shape[0]), dtype=t.dtype,
+                               device=t.device)
+        out = []
+        for row in theta.reshape(-1, theta.shape[-1]):
+            _, _, mean_p, _ = unpack_parameters(self.spec, row)
+            out.append(torch.stack([
+                torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+                if s is None else means_mod.evaluate(s, mp, t)
+                for s, mp in zip(self.spec.mean_structs, mean_p)]))
+        return torch.stack(out).reshape(*batch, p, t.shape[0])
 
     # ---- heuristic initialisation -----------------------------------------
 
     def init_mu_var(self, theta, y):
-        """(mu, var) starting state of the reference heuristic."""
+        """(mu, var) starting state of the reference heuristic, (..., d)
+        for ``theta`` of shape (..., n_parameters)."""
         q, p, N = self.spec.q, self.spec.p, self.spec.N
+        batch = theta.shape[:-1]
         node_p, weight_p, _, jitters = unpack_parameters(self.spec, theta)
-        a1 = torch.stack([pp[0] for pp in node_p])             # (q,)
-        a2 = torch.stack([pp[0] for pp in weight_p[:p]])       # first p only
+        a1 = torch.stack([pp[..., 0] for pp in node_p], dim=-1)   # (..., q)
+        a2 = torch.stack([pp[..., 0] for pp in weight_p[:p]],
+                         dim=-1)                                # first p only
         ay = torch.abs(y)                                      # (p, N)
         # mean1[j] = mean_i sqrt(|y_i| a1_j / a2_i) sign(y_i)
-        m1 = torch.sqrt(ay[None, :, :] * a1[:, None, None] /
-                        a2[None, :, None]) * torch.sign(y)[None]  # (q,p,N)
-        mean1 = torch.mean(m1, dim=1)                          # (q,N)
+        m1 = torch.sqrt(ay * a1[..., :, None, None] /
+                        a2[..., None, :, None]) * torch.sign(y)  # (...,q,p,N)
+        mean1 = torch.mean(m1, dim=-2)                         # (..., q, N)
         # mean2[j,i] = sqrt(|y_i| a2_i / a1_j)
-        mean2 = torch.sqrt(ay[None, :, :] * a2[None, :, None] /
-                           a1[:, None, None])                  # (q,p,N)
-        var1 = torch.mean(jitters).expand(q, N)
-        var2 = jitters[None, :, None].expand(q, p, N)
-        mu = torch.cat([mean1.reshape(-1), mean2.reshape(-1)])
-        var = torch.cat([var1.reshape(-1), var2.reshape(-1)])
+        mean2 = torch.sqrt(ay * a2[..., None, :, None] /
+                           a1[..., :, None, None])             # (...,q,p,N)
+        var1 = torch.mean(jitters, dim=-1)[..., None, None].expand(
+            *batch, q, N)
+        var2 = jitters[..., None, :, None].expand(*batch, q, p, N)
+        mu = torch.cat([mean1.reshape(*batch, -1),
+                        mean2.reshape(*batch, -1)], dim=-1)
+        var = torch.cat([var1.reshape(*batch, -1),
+                         var2.reshape(*batch, -1)], dim=-1)
         return mu, var
 
     # ---- one coordinate-ascent sweep + ELBO (ELBOaux) ----------------------
+    #
+    # Every function below takes optional leading batch dimensions (one
+    # per row of a θ batch) in front of the shapes its docstring gives;
+    # the single-θ engine calls them with none.
 
     def _u_split(self, u):
         q, p, N = self.spec.q, self.spec.p, self.spec.N
-        muF = u[:q * N].reshape(q, N)
-        muW = u[q * N:].reshape(p, q, N)
+        batch = u.shape[:-1]
+        muF = u[..., :q * N].reshape(*batch, q, N)
+        muW = u[..., q * N:].reshape(*batch, p, q, N)
         return muF, muW
+
+    @staticmethod
+    def _u_join(muF, muW):
+        """The flat (..., d) vector of node and weight blocks."""
+        batch = muF.shape[:-2]
+        return torch.cat([muF.reshape(*batch, -1), muW.reshape(*batch, -1)],
+                         dim=-1)
 
     @staticmethod
     def _diag_sigma(d_add, dAinv, Kdiag):
@@ -223,11 +284,11 @@ class Engine:
     def _sigma_apply(self, L, K, rhs, d_add, dAinv):
         """(Σ @ rhs, diag Σ) for Σ = K − K A⁻¹ K given chol L of
         A = K + diag(d_add) and diag(A⁻¹)."""
-        Krhs = torch.einsum("bij,bj->bi", K, rhs)
+        Krhs = torch.einsum("...ij,...j->...i", K, rhs)
         t1 = _cho_solve(L, Krhs)
-        sig_rhs = Krhs - torch.einsum("bij,bj->bi", K, t1)
+        sig_rhs = Krhs - torch.einsum("...ij,...j->...i", K, t1)
         d_sig = self._diag_sigma(d_add, dAinv,
-                                 torch.diagonal(K, dim1=1, dim2=2))
+                                 torch.diagonal(K, dim1=-2, dim2=-1))
         return sig_rhs, d_sig
 
     def _updates(self, Kf, Kw_flat, y_c, variance, muF, varF, muW, varW):
@@ -242,34 +303,36 @@ class Engine:
         y_c (p,N), variance (p,N), muF/varF (q,N), muW/varW (p,q,N)."""
         q, p, N = self.spec.q, self.spec.p, self.spec.N
         qp = q * p
+        batch = muF.shape[:-2]
+        var_w = variance[..., :, None, :]                        # (p,1,N)
 
         # -- node update (eqs. 16-17) --
-        dv = torch.sum((muW * muW + varW) / variance[:, None, :], dim=0)
+        dv = torch.sum((muW * muW + varW) / var_w, dim=-3)       # (q,N)
         inv_dv = 1.0 / dv
         Af = Kf + torch.diag_embed(inv_dv)
-        Laf, dAinv_f = _blocked.blocked_chol_diag_ainv(Af)
-        total = torch.einsum("pqn,qn->pn", muW, muF)
-        resid = (y_c[None, :, :] - total[None, :, :] +
-                 muW.permute(1, 0, 2) * muF[:, None, :])         # (q,p,N)
-        pred = torch.einsum("qpn,pqn->qn", resid,
-                            muW / variance[:, None, :])
+        Laf, dAinv_f = _on_stack(_blocked.blocked_chol_diag_ainv, Af)
+        total = torch.einsum("...pqn,...qn->...pn", muW, muF)
+        muW_qp = muW.transpose(-3, -2)                           # (q,p,N)
+        resid = (y_c[..., None, :, :] - total[..., None, :, :] +
+                 muW_qp * muF[..., :, None, :])                  # (q,p,N)
+        pred = torch.einsum("...qpn,...pqn->...qn", resid, muW / var_w)
         mu_f, dSf = self._sigma_apply(Laf, Kf, pred, inv_dv, dAinv_f)
 
         # -- weight update (eqs. 18-19); uses NEW mu_f, OLD muW --
         dv2 = mu_f * mu_f + dSf                                  # (q,N)
-        ratio = (variance[None, :, :] /
-                 dv2[:, None, :]).reshape(qp, N)                 # (q·p,N)
+        ratio = (variance[..., None, :, :] /
+                 dv2[..., :, None, :]).reshape(*batch, qp, N)    # (q·p,N)
         Aw = Kw_flat + torch.diag_embed(ratio)
-        Law, dAinv_w = _blocked.blocked_chol_diag_ainv(Aw)
-        total2 = torch.einsum("pqn,qn->pn", muW, mu_f)
-        resid2 = (y_c[None, :, :] - total2[None, :, :] +
-                  muW.permute(1, 0, 2) * mu_f[:, None, :])       # (q,p,N)
-        pred2 = (resid2 * mu_f[:, None, :] /
-                 variance[None, :, :]).reshape(qp, N)
+        Law, dAinv_w = _on_stack(_blocked.blocked_chol_diag_ainv, Aw)
+        total2 = torch.einsum("...pqn,...qn->...pn", muW, mu_f)
+        resid2 = (y_c[..., None, :, :] - total2[..., None, :, :] +
+                  muW_qp * mu_f[..., :, None, :])                # (q,p,N)
+        pred2 = (resid2 * mu_f[..., :, None, :] /
+                 variance[..., None, :, :]).reshape(*batch, qp, N)
         mu_w_flat, dSw = self._sigma_apply(Law, Kw_flat, pred2, ratio,
                                            dAinv_w)
-        mu_w = mu_w_flat.reshape(q, p, N).permute(1, 0, 2)       # (p,q,N)
-        dSw_qp = dSw.reshape(q, p, N)
+        mu_w = mu_w_flat.reshape(*batch, q, p, N).transpose(-3, -2)  # (p,q,N)
+        dSw_qp = dSw.reshape(*batch, q, p, N)
         return (mu_f, dSf, mu_w, dSw_qp,
                 (dv, inv_dv, Laf, dAinv_f, ratio, Law, dAinv_w))
 
@@ -279,7 +342,7 @@ class Engine:
         ``(muF, varF, muW, varW)`` of the next sweep."""
         mu_f, dSf, mu_w, dSw_qp, _ = self._updates(
             Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
-        return mu_f, dSf, mu_w, dSw_qp.permute(1, 0, 2)
+        return mu_f, dSf, mu_w, dSw_qp.transpose(-3, -2)
 
     def _sweep(self, Kf, Kw_flat, L_all, Linv_nodes, y_c, y_raw, variance,
                muF, varF, muW, varW):
@@ -290,87 +353,99 @@ class Engine:
             tr(K⁻¹ Σ)  = tr(A⁻¹ D⁻¹) = Σⱼ dⱼ (A⁻¹)ⱼⱼ
 
         Shapes as :meth:`_updates`, plus L_all (q·(1+p),N,N), Linv_nodes
-        (q,N,N) [None when q == 1], y_raw (p,N)."""
+        (q,N,N) [None when q == 1], y_raw (p,N) (the data: no batch
+        dimensions)."""
         q, p, N = self.spec.q, self.spec.p, self.spec.N
         qp = q * p
+        batch = muF.shape[:-2]
         mu_f, dSf, mu_w, dSw_qp, factors = self._updates(
             Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
         dv, inv_dv, Laf, dAinv_f, ratio, Law, dAinv_w = factors
 
         # -- entropy: ½ Σ log det Σ by the determinant identity --
         def half_logdet(L):
-            return torch.sum(torch.log(torch.diagonal(L, dim1=1, dim2=2)),
-                             dim=1)
+            return torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                             dim=-1)
 
         half_ldK = half_logdet(L_all)                            # (q·(1+p),)
         ldA_f = 2.0 * half_logdet(Laf)                           # (q,)
         ldA_w = 2.0 * half_logdet(Law)                           # (q·p,)
-        ldD_f = torch.sum(torch.log(dv), dim=1)                  # (q,)
-        ldD_w = -torch.sum(torch.log(ratio), dim=1)              # (q·p,)
+        ldD_f = torch.sum(torch.log(dv), dim=-1)                 # (q,)
+        ldD_w = -torch.sum(torch.log(ratio), dim=-1)             # (q·p,)
         ldSig = (2.0 * half_ldK
-                 - torch.cat([ldA_f, ldA_w])
-                 - torch.cat([ldD_f, ldD_w]))
-        ent = 0.5 * torch.sum(ldSig) \
+                 - torch.cat([ldA_f, ldA_w], dim=-1)
+                 - torch.cat([ldD_f, ldD_w], dim=-1))
+        ent = 0.5 * torch.sum(ldSig, dim=-1) \
             + 0.5 * q * (p + 1) * N * (1 + LOG_2PI)
 
         # -- expected log prior: vector solves against L_all --
         # reference quirk: the (p,q,N) weight means enter the prior as a
         # RAW flatten to (q·p, N)
-        muW_prior = mu_w.reshape(qp, N)
-        mu_all = torch.cat([mu_f, muW_prior], dim=0)             # (q(1+p),N)
+        muW_prior = mu_w.reshape(*batch, qp, N)
+        mu_all = torch.cat([mu_f, muW_prior], dim=-2)            # (q(1+p),N)
         alpha_all = _cho_solve(L_all, mu_all)
-        muKmu_all = torch.einsum("an,an->a", mu_all, alpha_all)
-        tr_f_same = torch.sum(inv_dv * dAinv_f, dim=1)           # (q,)
-        tr_w = torch.sum(ratio * dAinv_w, dim=1)                 # (q·p,)
+        muKmu_all = torch.einsum("...an,...an->...a", mu_all, alpha_all)
+        tr_f_same = torch.sum(inv_dv * dAinv_f, dim=-1)          # (q,)
+        tr_w = torch.sum(ratio * dAinv_w, dim=-1)                # (q·p,)
         # reference quirk: node j's trace term uses the CUMULATIVE sum of
         # sigma_f over nodes <= j.  Cross terms tr(K_j⁻¹ Σ_k), k < j, via
         # Woodbury Σ_k = D_k⁻¹ − D_k⁻¹ A_k⁻¹ D_k⁻¹:
         #   tr(K_j⁻¹ Σ_k) = Σₙ diag(K_j⁻¹)ₙ/dvₖₙ − ‖L_Ak⁻¹ D_k⁻¹ L_j⁻ᵀ‖²
-        tr_f_rows = [tr_f_same[j] for j in range(q)]
+        tr_f_rows = [tr_f_same[..., j] for j in range(q)]
         if q > 1:
-            diag_Kinv = torch.sum(Linv_nodes * Linv_nodes, dim=1)  # (q,N)
+            diag_Kinv = torch.sum(Linv_nodes * Linv_nodes, dim=-2)  # (q,N)
             for j in range(1, q):
                 for k in range(j):
-                    term1 = torch.sum(diag_Kinv[j] * inv_dv[k])
-                    T = Linv_nodes[j] * inv_dv[k][None, :]       # (N,N)
-                    W = torch.linalg.solve_triangular(Laf[k], T.T,
-                                                      upper=False)
-                    tr_f_rows[j] = tr_f_rows[j] + term1 - torch.sum(W * W)
-        tr_f = torch.stack(tr_f_rows)
-        tr_all = torch.cat([tr_f, tr_w])
-        logp = torch.sum(-half_ldK - 0.5 * (muKmu_all + tr_all)) \
+                    term1 = torch.sum(diag_Kinv[..., j, :] * inv_dv[..., k, :],
+                                      dim=-1)
+                    T = Linv_nodes[..., j, :, :] * \
+                        inv_dv[..., k, None, :]                  # (N,N)
+                    W = torch.linalg.solve_triangular(
+                        Laf[..., k, :, :], T.transpose(-2, -1), upper=False)
+                    tr_f_rows[j] = tr_f_rows[j] + term1 - \
+                        torch.sum(W * W, dim=(-2, -1))
+        tr_f = torch.stack(tr_f_rows, dim=-1)
+        tr_all = torch.cat([tr_f, tr_w], dim=-1)
+        logp = torch.sum(-half_ldK - 0.5 * (muKmu_all + tr_all), dim=-1) \
             - 0.5 * N * q * (p + 1) * LOG_2PI
 
         # -- expected log likelihood (raw-y quirk) --
-        logl = -0.5 * torch.sum(torch.log(2 * math.pi * variance))
-        omega_nu = torch.einsum("pqn,qn->pn", mu_w, mu_f)
+        logl = -0.5 * torch.sum(torch.log(2 * math.pi * variance),
+                                dim=(-2, -1))
+        omega_nu = torch.einsum("...pqn,...qn->...pn", mu_w, mu_f)
         res = y_raw - omega_nu
-        logl = logl - 0.5 * torch.sum(res * res / variance)
-        quad = (dSf[:, None, :] * (mu_w.permute(1, 0, 2) ** 2) +
-                dSw_qp * (mu_f[:, None, :] ** 2) +
-                dSf[:, None, :] * dSw_qp) / variance[None, :, :]
-        logl = logl - 0.5 * torch.sum(quad)
+        logl = logl - 0.5 * torch.sum(res * res / variance, dim=(-2, -1))
+        quad = (dSf[..., :, None, :] * (mu_w.transpose(-3, -2) ** 2) +
+                dSw_qp * (mu_f[..., :, None, :] ** 2) +
+                dSf[..., :, None, :] * dSw_qp) / variance[..., None, :, :]
+        logl = logl - 0.5 * torch.sum(quad, dim=(-3, -2, -1))
 
         elbo = (logl + logp + ent) / q
-        return elbo, mu_f, dSf, mu_w, dSw_qp.permute(1, 0, 2)
+        return elbo, mu_f, dSf, mu_w, dSw_qp.transpose(-3, -2)
 
     # ---- fit --------------------------------------------------------------
 
     def _prepare(self, theta, t, y, yerr2):
+        """The per-θ constants of the sweeps: ``(Kf, Kw_flat, L_all,
+        Linv_nodes, y_c, y, variance)``, all but the data ``y`` with the
+        leading batch dimensions of ``theta``."""
         q, N = self.spec.q, self.spec.N
-        Kf, Kw_flat, jitters = self._build_matrices(theta, t)
+        K_all = self._lattice(theta, t)
+        _, _, _, jitters = unpack_parameters(self.spec, theta)
         # ONE batched Cholesky of the whole q·(1+p) prior lattice
-        L_all = _blocked.cholesky_nan(torch.cat([Kf, Kw_flat], dim=0))
+        L_all = _blocked.cholesky_nan(K_all)
         Linv_nodes = None
         if q > 1:
             # L_f⁻¹ per node, for the cumulative-sumSigmaF cross traces
+            Lf = L_all[..., :q, :, :]
             eye = torch.eye(N, dtype=L_all.dtype, device=L_all.device)
             Linv_nodes = torch.linalg.solve_triangular(
-                L_all[:q], eye.expand(q, N, N), upper=False)
+                Lf, eye.expand(Lf.shape), upper=False)
         m = self._mean_values(theta, t)
         y_c = y - m
-        variance = jitters[:, None] ** 2 + yerr2
-        return Kf, Kw_flat, L_all, Linv_nodes, y_c, y, variance
+        variance = jitters[..., :, None] ** 2 + yerr2
+        return (K_all[..., :q, :, :], K_all[..., q:, :, :], L_all,
+                Linv_nodes, y_c, y, variance)
 
     def sweep_once(self, theta, t, y, yerr2, mu0, var0):
         """Single ELBOaux step: ``(elbo, mu, var)``."""
@@ -379,9 +454,7 @@ class Engine:
         varF, varW = self._u_split(var0.reshape(-1))
         elbo, mu_f, varf, mu_w, varw = self._sweep(*prepared, muF, varF,
                                                    muW, varW)
-        mu = torch.cat([mu_f.reshape(-1), mu_w.reshape(-1)])
-        var = torch.cat([varf.reshape(-1), varw.reshape(-1)])
-        return elbo, mu, var
+        return elbo, self._u_join(mu_f, mu_w), self._u_join(varf, varw)
 
     def elbo_fit(self, theta, t, y, yerr2, mu0, var0, max_iter=10000):
         """Coordinate ascent until the relative std of the last three
@@ -403,14 +476,89 @@ class Engine:
             trace.append(elbo)
             it += 1
             if it > 3:
-                crit = torch.abs(torch.std(hist, correction=0) /
-                                 torch.mean(hist))
-                done = bool((crit < 1e-3) & (crit != 0))
-        mu = torch.cat([muF.reshape(-1), muW.reshape(-1)])
-        var = torch.cat([varF.reshape(-1), varW.reshape(-1)])
+                done = bool(_rel_std3_stop(hist))
         trace = torch.stack(trace) if trace else \
             torch.zeros(0, dtype=dtype, device=device)
-        return elbo, mu, var, it, done, trace
+        return (elbo, self._u_join(muF, muW), self._u_join(varF, varW), it,
+                done, trace)
+
+    # ---- a batch of hyperparameter vectors --------------------------------
+
+    @staticmethod
+    def _rows(theta, x):
+        """``x`` of shape (d,) broadcast to one copy per row of ``theta``
+        (W, n_parameters); (W, d) passes as it is."""
+        return x.expand(theta.shape[0], x.shape[-1]) if x.ndim == 1 else x
+
+    def elbo_fit_batch(self, theta, t, y, yerr2, mu0, var0, max_iter=10000):
+        """:meth:`elbo_fit` of every row of ``theta`` (W, n_parameters)
+        from its row of ``mu0`` / ``var0`` (W, d), in one pass: the JAX
+        package's ``vmap(elbo_fit)``.  Each row applies the rel-std(3) rule
+        on its own, and a row that stopped keeps its state, its ELBO and
+        its sweep count; a row whose ELBO is not finite sweeps on to
+        ``max_iter``.  Only the rows still running are swept: when rows
+        stop, the constants and states of the others are gathered.  One
+        boolean per row comes to the host per sweep (from sweep 4 on).
+        Returns ``(elbo (W,), mu (W, d), var (W, d), n_iter (W,),
+        converged (W,))``."""
+        W = theta.shape[0]
+        prepared = list(self._prepare(theta, t, y, yerr2))
+        muF, muW = self._u_split(self._rows(theta, mu0))
+        varF, varW = self._u_split(self._rows(theta, var0))
+        state = [muF, varF, muW, varW]
+        dtype, device = muF.dtype, muF.device
+        elbo_out = torch.zeros(W, dtype=dtype, device=device)
+        mu_out = self._u_join(muF, muW).clone()
+        var_out = self._u_join(varF, varW).clone()
+        n_iter = np.zeros(W, dtype=np.int64)
+        converged = np.zeros(W, dtype=bool)
+        hist = torch.full((W, 3), float("inf"), dtype=dtype, device=device)
+        rows = np.arange(W)                 # the original index of each row
+        elbo, it = None, 0
+
+        def finish(sel):
+            """Write the rows ``sel`` (a mask over the running rows) out."""
+            where = torch.as_tensor(rows[sel], device=device)
+            mask = torch.as_tensor(sel, device=device)
+            elbo_out[where] = elbo[mask]
+            mu_out[where] = self._u_join(state[0][mask], state[2][mask])
+            var_out[where] = self._u_join(state[1][mask], state[3][mask])
+            n_iter[rows[sel]] = it
+
+        while rows.size and it < max_iter:
+            elbo, *state = self._sweep(*prepared, *state)
+            hist = torch.cat([hist[:, 1:], elbo[:, None]], dim=1)
+            it += 1
+            if it <= 3:
+                continue
+            done = _rel_std3_stop(hist).cpu().numpy()
+            if not done.any():
+                continue
+            finish(done)
+            converged[rows[done]] = True
+            keep = torch.as_tensor(~done, device=device)
+            rows = rows[~done]
+            # the data (prepared[5]) and a missing Linv_nodes have no row
+            # axis
+            prepared = [x if i == 5 or x is None else x[keep]
+                        for i, x in enumerate(prepared)]
+            state = [s[keep] for s in state]
+            hist, elbo = hist[keep], elbo[keep]
+        if rows.size and elbo is not None:
+            finish(np.ones(rows.size, dtype=bool))
+        return (elbo_out, mu_out, var_out,
+                torch.as_tensor(n_iter, device=device),
+                torch.as_tensor(converged, device=device))
+
+    def elbo_fixed_batch(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
+        """:meth:`elbo_fixed` of every row of ``theta`` (W, n_parameters),
+        as (W,): the JAX package's ``elbo_fixed.static`` under ``vmap``.
+        ``mu0`` / ``var0`` are one state (d,) for every row, or one per row
+        (W, d)."""
+        elbo, *_ = self._static_sweeps(theta, t, y, yerr2,
+                                       self._rows(theta, mu0),
+                                       self._rows(theta, var0), n_sweeps)
+        return elbo
 
     # ---- converged-state fits (updates-only, exact nugget) ----------------
 
@@ -419,15 +567,9 @@ class Engine:
         float32 trace scaling): the matrices of the updates-only fits,
         whose (K + D⁻¹) solves are float32-safe by D⁻¹, so that a float32
         fit converges to the true model's fixed point."""
-        spec = self.spec
-        node_p, weight_p, _, _ = unpack_parameters(spec, theta)
-        node_c = self._core(node_p, self.node_maps)
-        weight_c = self._core(weight_p, self.weight_maps)
-        Kf = kernel_matrix_stack(spec.node_structs, node_c, t, TRAIN_NUGGET,
-                                 jitter_mult=0.0)
-        Kw_flat = kernel_matrix_stack(spec.weight_structs, weight_c, t,
-                                      TRAIN_NUGGET, jitter_mult=0.0)
-        return Kf, Kw_flat
+        K = self._lattice(theta, t, jitter_mult=0.0)
+        q = self.spec.q
+        return K[..., :q, :, :], K[..., q:, :, :]
 
     @staticmethod
     def _state_delta(mu_f, mu_w, muF, muW):
@@ -456,9 +598,7 @@ class Engine:
             done = bool(self._state_delta(mu_f, mu_w, muF, muW) < tol)
             muF, muW = mu_f, mu_w
             it += 1
-        mu = torch.cat([muF.reshape(-1), muW.reshape(-1)])
-        var = torch.cat([varF.reshape(-1), varW.reshape(-1)])
-        return mu, var, it, done
+        return self._u_join(muF, muW), self._u_join(varF, varW), it, done
 
     def _merit_stall_loop(self, block_fn, mu0, var0, max_iter, tol,
                           stall_tol, patience, block, info=None):
@@ -510,9 +650,7 @@ class Engine:
                         nonfinite_merits=int(nonfinite),
                         best_merit=float(bE),
                         stalled=bool(done and not bool(delta < tol)))
-        mu = torch.cat([muF.reshape(-1), muW.reshape(-1)])
-        var = torch.cat([varF.reshape(-1), varW.reshape(-1)])
-        return mu, var, it, done
+        return self._u_join(muF, muW), self._u_join(varF, varW), it, done
 
     def fit_state_stall(self, theta, t, y, yerr2, mu0, var0, max_iter, tol,
                         block, stall_tol, patience, info=None):
@@ -546,15 +684,17 @@ class Engine:
     def _static_sweeps(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
         """``n_sweeps`` sweeps from (mu0, var0): n−1 updates-only sweeps,
         then one full :meth:`_sweep` whose ELBO is the result.  Returns
-        ``(elbo, muF, varF, muW, varW)``."""
+        ``(elbo, muF, varF, muW, varW)``, with the leading batch dimensions
+        of ``theta`` (the states have them too)."""
         n_sweeps = int(n_sweeps)
         if n_sweeps < 1:
             raise ValueError("n_sweeps must be >= 1 (an unswept ELBO is "
                              "undefined)")
         prepared = self._prepare(theta, t, y, yerr2)
         Kf, Kw_flat, _, _, y_c, _, variance = prepared
-        muF, muW = self._u_split(mu0.reshape(-1))
-        varF, varW = self._u_split(var0.reshape(-1))
+        batch = theta.shape[:-1]
+        muF, muW = self._u_split(mu0.reshape(*batch, -1))
+        varF, varW = self._u_split(var0.reshape(*batch, -1))
         for _ in range(n_sweeps - 1):
             muF, varF, muW, varW = self._sweep_updates(
                 Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
@@ -572,9 +712,7 @@ class Engine:
         """``(elbo, mu, var)`` after exactly ``n_sweeps`` sweeps."""
         elbo, muF, varF, muW, varW = self._static_sweeps(
             theta, t, y, yerr2, mu0, var0, n_sweeps)
-        mu = torch.cat([muF.reshape(-1), muW.reshape(-1)])
-        var = torch.cat([varF.reshape(-1), varW.reshape(-1)])
-        return elbo, mu, var
+        return elbo, self._u_join(muF, muW), self._u_join(varF, varW)
 
     def elbo_value_and_grad(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
         """``(elbo, d elbo / d theta)`` of :meth:`elbo_fixed`, by autograd

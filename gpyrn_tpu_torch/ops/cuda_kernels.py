@@ -36,14 +36,16 @@ computed outside it by differentiable tensor ops, so its gradient is
 ``trace(G)`` chained through ``k(0)``.  ``t`` takes no gradient (the JAX
 package differentiates θ only).
 
-:func:`kernel_matrix_stack_cuda` builds the matrices of a list of
-structures straight into one ``(B, N, N)`` tensor (one B1 launch per
+:func:`kernel_matrix_rows_cuda` builds a lattice, W rows of a list of S
+structures, straight into one ``(W, S, N, N)`` tensor (one B1 launch per
 slice, one B1′ launch per slice of the adjoint in the backward), which
-saves the copy of ``torch.stack``.  :func:`kernel_matrix_cuda` is its
-one-matrix case.  Both launch on a CUDA tensor and raise on anything
-else.  :func:`kernel_matrix_ref`,
-:func:`kernel_matrix_stack_ref` and :func:`kernel_matrix_grad_ref` are the
-plain PyTorch versions: the CPU path runs the first two (and autograd
+saves the copy of ``torch.stack``; each structure is checked, and its
+jitters computed, once for all W rows.  :func:`kernel_matrix_stack_cuda`
+is its one-row case, a ``(B, N, N)`` stack, and :func:`kernel_matrix_cuda`
+the one-matrix case.  All three launch on a CUDA tensor and raise on
+anything else.  :func:`kernel_matrix_ref`, :func:`kernel_matrix_stack_ref`,
+:func:`kernel_matrix_rows_ref` and :func:`kernel_matrix_grad_ref` are the
+plain PyTorch versions: the CPU path runs the first three (and autograd
 through them), and on the card only the tests and ``chip_smoke.py`` call
 them, to compare.
 """
@@ -61,6 +63,7 @@ from gpyrn_tpu_torch.ops import kernels as _k
 __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_ref", "kernel_matrix_cuda",
            "kernel_matrix_stack_ref", "kernel_matrix_stack_cuda",
+           "kernel_matrix_rows_ref", "kernel_matrix_rows_cuda",
            "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda",
            "grad_blocks", "LAUNCHES",
            "reset_launch_counts"]
@@ -164,7 +167,8 @@ def encode_program(structure) -> Program:
 
 def _jitter(structure, params, t, nugget, jitter_mult):
     """max(nugget, jitter_mult·eps·N·k(0)) as a 0-d tensor on t's device
-    (no host synchronisation)."""
+    (no host synchronisation); for ``params`` of shape (n_params, W), the
+    W jitters of its columns."""
     k0 = _k.evaluate(structure, params,
                      r=torch.zeros((), dtype=t.dtype, device=t.device))
     eps = torch.finfo(t.dtype).eps
@@ -237,7 +241,9 @@ def _sm_count(device_index):
         device_index).multi_processor_count
 
 
-def _check(structure, params, t):
+def _check(structure, params, t, rows=False):
+    """Refuse what B1 does not take: ``params`` is the structure's 1-D
+    parameter tensor, or with ``rows`` a (W, n_params) tensor of them."""
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError("kernel_matrix_cuda takes CUDA tensors; "
                          "kernel_matrix_ref is the CPU version")
@@ -247,29 +253,31 @@ def _check(structure, params, t):
     if t.ndim != 1 or t.shape[0] < 1 or not t.is_contiguous():
         raise ValueError(f"t must be a non-empty contiguous 1-D tensor, got "
                          f"shape {tuple(t.shape)}")
+    shape = "(W, n_params)" if rows else "1-D"
     if (params.device != t.device or params.dtype != t.dtype
-            or params.ndim != 1 or not params.is_contiguous()):
-        raise ValueError("params must be a contiguous 1-D tensor on t's "
-                         "device and in t's dtype")
+            or params.ndim != 1 + int(rows) or not params.is_contiguous()
+            or (rows and params.shape[0] < 1)):
+        raise ValueError(f"params must be a contiguous {shape} tensor on "
+                         f"t's device and in t's dtype")
     if not cuda_supported(structure):
         raise ValueError(f"structure {structure!r} has no CUDA kernel")
     n_par = _k.n_params(structure)
-    if params.shape[0] != n_par:
+    if params.shape[-1] != n_par:
         raise ValueError(f"structure {structure!r} takes {n_par} parameters, "
-                         f"got {params.shape[0]}")
+                         f"got {params.shape[-1]}")
     if n_par > MAX_PARAMS:
         raise ValueError(f"structure {structure!r} has {n_par} parameters; "
                          f"the kernel takes at most {MAX_PARAMS}")
 
 
-def _launch(structure, params, jitter, t, out):
-    """B1 on the card: K + jitter·I into ``out``, a contiguous (N, N)
-    tensor or slice."""
+def _launch(fn, t, params, jitter, out, n_par, program, stream):
+    """B1 on the card: K + jitter·I into ``out``.  ``params``, ``jitter``
+    and ``out`` are data pointers (the structure's parameters, its 0-d
+    jitter, a contiguous (N, N) slice); ``fn``, ``program`` and ``stream``
+    the launch lookups, made once per lattice."""
     n = t.shape[0]
-    err = _function(t.dtype)(
-        t.device.index, t.data_ptr(), params.data_ptr(), jitter.data_ptr(),
-        out.data_ptr(), n, params.shape[0], *_program_args(structure),
-        torch.cuda.current_stream(t.device).cuda_stream)
+    err = fn(t.device.index, t.data_ptr(), params, jitter, out, n, n_par,
+             *program, stream)
     if err != 0:
         raise RuntimeError(f"kernel_matrix launch failed with CUDA "
                            f"error {err} (N={n}, {t.dtype})")
@@ -296,18 +304,29 @@ def _launch_grad(structure, params, t, G):
 
 
 class _KernelMatrixStack(torch.autograd.Function):
-    """The (B, N, N) stack of K_b = kernel_b(t; params_b) + jitter_b·I: one
-    B1 launch per slice of one buffer; in the backward one B1′ launch per
-    slice of G, and trace(G_b) for each jitter.  Inputs after ``structures``
-    are the B parameter tensors, then the B jitters."""
+    """The (W, S, N, N) lattice of K_ws = kernel_s(t; params_s[w]) +
+    jitter_s[w]·I: one B1 launch per slice of one buffer; in the backward
+    one B1′ launch per slice of G, and trace(G_ws) for each jitter.
+    Inputs after ``structures`` are the S contiguous parameter tensors
+    (W, n_params_s), then the S contiguous jitter tensors (W,)."""
 
     @staticmethod
     def forward(ctx, t, structures, *inputs):
-        B, n = len(structures), t.shape[0]
-        params, jitters = inputs[:B], inputs[B:]
-        out = torch.empty((B, n, n), dtype=t.dtype, device=t.device)
-        for b in range(B):
-            _launch(structures[b], params[b], jitters[b], t, out[b])
+        S, n = len(structures), t.shape[0]
+        params, jitters = inputs[:S], inputs[S:]
+        W = params[0].shape[0]
+        out = torch.empty((W, S, n, n), dtype=t.dtype, device=t.device)
+        fn = _function(t.dtype)
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        size = t.element_size()
+        for s, structure in enumerate(structures):
+            program = _program_args(structure)
+            n_par = params[s].shape[1]
+            p0, j0 = params[s].data_ptr(), jitters[s].data_ptr()
+            for w in range(W):
+                _launch(fn, t, p0 + w * n_par * size, j0 + w * size,
+                        out.data_ptr() + (w * S + s) * n * n * size, n_par,
+                        program, stream)
         ctx.save_for_backward(t, *params)
         ctx.structures = structures
         return out
@@ -315,17 +334,19 @@ class _KernelMatrixStack(torch.autograd.Function):
     @staticmethod
     def backward(ctx, G):
         t, *params = ctx.saved_tensors
-        B = len(params)
+        S, W = len(params), params[0].shape[0]
         G = G.contiguous()
-        grads = [None] * (2 * B)
-        for b in range(B):
-            if ctx.needs_input_grad[2 + b]:
-                grads[b] = _launch_grad(ctx.structures[b], params[b], t, G[b])
-        if any(ctx.needs_input_grad[2 + B:]):
-            traces = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
-            for b in range(B):
-                if ctx.needs_input_grad[2 + B + b]:
-                    grads[B + b] = traces[b]
+        grads = [None] * (2 * S)
+        for s in range(S):
+            if ctx.needs_input_grad[2 + s]:
+                grads[s] = torch.stack([
+                    _launch_grad(ctx.structures[s], params[s][w], t, G[w, s])
+                    for w in range(W)])
+        if any(ctx.needs_input_grad[2 + S:]):
+            traces = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)   # (W, S)
+            for s in range(S):
+                if ctx.needs_input_grad[2 + S + s]:
+                    grads[S + s] = traces[:, s]
         return (None, None, *grads)
 
 
@@ -344,9 +365,9 @@ def kernel_matrix_cuda(structure, params, t, nugget, jitter_mult):
     same device in the same dtype.  Launches on the current stream and does
     not synchronise."""
     _check(structure, params, t)
-    _check_no_grad(t)
-    jitter = _jitter(structure, params, t, float(nugget), float(jitter_mult))
-    return _KernelMatrixStack.apply(t, (structure,), params, jitter)[0]
+    n = t.shape[0]
+    return kernel_matrix_rows_cuda((structure,), (params[None],), t, nugget,
+                                   jitter_mult).view(n, n)
 
 
 def kernel_matrix_stack_ref(structures, params, t, nugget, jitter_mult):
@@ -356,23 +377,57 @@ def kernel_matrix_stack_ref(structures, params, t, nugget, jitter_mult):
                         for s, p in zip(structures, params)])
 
 
+def kernel_matrix_rows_ref(structures, params, t, nugget, jitter_mult):
+    """Plain PyTorch version of :func:`kernel_matrix_rows_cuda`: the plain
+    stack of every row, stacked."""
+    return torch.stack([
+        kernel_matrix_stack_ref(structures, [p[w] for p in params], t,
+                                nugget, jitter_mult)
+        for w in range(params[0].shape[0])])
+
+
+def _count_check(structures, params):
+    if not structures or len(structures) != len(params):
+        raise ValueError(f"need one parameter tensor per structure and at "
+                         f"least one, got {len(structures)} structures and "
+                         f"{len(params)} parameter tensors")
+
+
 def kernel_matrix_stack_cuda(structures, params, t, nugget, jitter_mult):
     """The ``(B, N, N)`` stack of dense K_b(t, t) + jitter_b·I for B kernel
     structures on the card, each built by the CUDA kernel straight into its
     slice of one tensor; differentiable with respect to every ``params[b]``
     (B1′ on the matching slice of the adjoint).  Arguments as
     :func:`kernel_matrix_cuda`, with a sequence of structures and one
-    parameter tensor for each."""
+    parameter tensor for each: the one-row case of
+    :func:`kernel_matrix_rows_cuda`."""
     structures, params = tuple(structures), tuple(params)
-    if not structures or len(structures) != len(params):
-        raise ValueError(f"need one parameter tensor per structure and at "
-                         f"least one, got {len(structures)} structures and "
-                         f"{len(params)} parameter tensors")
+    _count_check(structures, params)
     for s, p in zip(structures, params):
         _check(s, p, t)
+    return kernel_matrix_rows_cuda(structures, [p[None] for p in params], t,
+                                   nugget, jitter_mult)[0]
+
+
+def kernel_matrix_rows_cuda(structures, params, t, nugget, jitter_mult):
+    """The ``(W, S, N, N)`` lattice of dense K_ws(t, t) + jitter_ws·I on
+    the card: W rows of the S kernel structures ``structures``, where
+    ``params[s]`` is the contiguous (W, n_params_s) tensor of structure s's
+    core parameters, one row per lattice row.  One B1 launch per matrix,
+    straight into its slice of one tensor; each structure is checked, and
+    its W jitters computed, once (no host read).  Differentiable with
+    respect to every ``params[s]``; ``t`` as in :func:`kernel_matrix_cuda`.
+    """
+    structures, params = tuple(structures), tuple(params)
+    _count_check(structures, params)
+    for s, p in zip(structures, params):
+        _check(s, p, t, rows=True)
+    if len({p.shape[0] for p in params}) != 1:
+        raise ValueError(f"every parameter tensor needs the same rows, got "
+                         f"{[p.shape[0] for p in params]}")
     _check_no_grad(t)
-    jitters = [_jitter(s, p, t, float(nugget), float(jitter_mult))
-               for s, p in zip(structures, params)]
+    jitters = [_jitter(s, p.T, t, float(nugget), float(jitter_mult))
+               .contiguous() for s, p in zip(structures, params)]
     return _KernelMatrixStack.apply(t, structures, *params, *jitters)
 
 

@@ -19,7 +19,9 @@ plain twin for a CPU tensor.  Any other structure (WhiteNoise, the
 derivative kernels, the non-stationary kernels) takes the plain formula
 on every device, exactly as in the JAX package.  :func:`kernel_matrix_stack`
 is the same dispatch for a list of structures: when the kernel supports
-them all, it writes them into one ``(B, N, N)`` tensor without a copy.
+them all, it writes them into one ``(B, N, N)`` tensor without a copy;
+:func:`kernel_matrix_rows` does it for W rows of such a list, one
+``(W, S, N, N)`` tensor.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from gpyrn_tpu_torch.ops import kernels as _k
 
 __all__ = [
     "TRAIN_NUGGET", "PREDICT_NUGGET", "F32_JITTER_MULT",
-    "kernel_matrix", "kernel_matrix_stack", "kernel_matrix_plain",
+    "kernel_matrix", "kernel_matrix_stack", "kernel_matrix_rows",
+    "kernel_matrix_plain",
     "kernel_diag",
     "cross_kernel_matrix", "psd_jitter",
 ]
@@ -111,6 +114,29 @@ def kernel_matrix_stack(structures, params, t, nugget=TRAIN_NUGGET,
     one = kernel_matrix if jitter_mult else kernel_matrix_plain
     return torch.stack([one(s, p, t, nugget)
                         for s, p in zip(structures, params)])
+
+
+def kernel_matrix_rows(structures, params, t, nugget=TRAIN_NUGGET,
+                       jitter_mult=F32_JITTER_MULT):
+    """The ``(W, S, N, N)`` lattice of :func:`kernel_matrix_stack` over W
+    rows: ``params[s]`` holds the (W, n_params_s) parameters of structure
+    s, one row per lattice row.  When the CUDA kernel supports every
+    structure, a CUDA tensor goes through it into one buffer, each
+    structure checked and its jitters computed once for all rows; anything
+    else is built row by row by :func:`kernel_matrix_stack`."""
+    if jitter_mult not in (0.0, F32_JITTER_MULT):
+        raise ValueError(f"jitter_mult is F32_JITTER_MULT or 0 (the exact "
+                         f"nugget), got {jitter_mult!r}")
+    structures = tuple(structures)
+    params = [_params(p, t) for p in params]
+    if t.is_cuda and all(_ck.cuda_supported(s) for s in structures):
+        return _ck.kernel_matrix_rows_cuda(
+            structures, [p.contiguous() for p in params], t.contiguous(),
+            nugget, jitter_mult)
+    return torch.stack([
+        kernel_matrix_stack(structures, [p[w] for p in params], t, nugget,
+                            jitter_mult)
+        for w in range(params[0].shape[0])])
 
 
 def kernel_matrix_plain(structure, params, t, nugget=TRAIN_NUGGET):

@@ -1,8 +1,10 @@
 """gpyrn_tpu_torch on the card: the CUDA kernel-matrix kernel (B1) and its
 backward (B1′) against their plain twins (ragged sizes, exact symmetry,
 a non-symmetric adjoint, the same bits from run to run), the stacked
-function and its backward, and the main path and the gradient path on the
-card against the same on the CPU.
+function and its backward, and the main path, the gradient path, the
+converged-state paths and the batched paths (the θ-batched fit,
+``optimize_device``, the samplers, ``batch_elbo``) on the card against the
+same on the CPU.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode).  The file imports no jax, so the card's machine runs it
@@ -216,6 +218,51 @@ def test_stack_matches_its_plain_version(dtype, cuda):
         for g, g_ref in zip(grads["cuda"], grads["plain"]):
             assert float((g - g_ref).abs().max()) <= \
                 tol * float(g_ref.abs().max()), (N, g, g_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rows_match_their_plain_version(dtype, cuda):
+    """kernel_matrix_rows_cuda: one (W, S, N, N) buffer, W·S launches of
+    B1 and of B1′ in the backward; each row equals the one-row stack to the
+    bit, values and gradients agree with the plain version (gradients as
+    in the stack's test)."""
+    structures = [s for s, _ in STACK]
+    W, S = 5, len(STACK)
+    rng = np.random.default_rng(W)
+    base = [np.asarray(pars) * np.exp(0.1 * rng.standard_normal(
+        (W, len(pars)))) for _, pars in STACK]
+    for N in (33, 1000):
+        t = torch.tensor(_times(N), dtype=dtype, device=cuda)
+        G = torch.tensor(rng.standard_normal((W, S, N, N)), dtype=dtype,
+                         device=cuda)
+        out = {}
+        for name, fn in (("cuda", ck.kernel_matrix_rows_cuda),
+                         ("plain", ck.kernel_matrix_rows_ref)):
+            rows = [torch.tensor(b, dtype=dtype, device=cuda,
+                                 requires_grad=True) for b in base]
+            before = dict(ck.LAUNCHES)
+            K = fn(structures, rows, t, 1e-6, tlin.F32_JITTER_MULT)
+            grads = torch.autograd.grad(K, rows, grad_outputs=G)
+            launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+            expected = W * S if name == "cuda" else 0
+            assert launched == {"kernel_matrix": expected,
+                                "kernel_matrix_grad": expected}
+            out[name] = (K.detach(), grads)
+        (K, g), (R, g_ref) = out["cuda"], out["plain"]
+        assert K.shape == (W, S, N, N) and K.is_contiguous()
+        rtol, atol = ((1e-12, 1e-14) if dtype == torch.float64
+                      else (2e-6, 1e-6))
+        assert bool(((K - R).abs() <= atol * R.abs().amax()
+                     + rtol * R.abs()).all())
+        for w in range(W):
+            assert torch.equal(K[w], ck.kernel_matrix_stack_cuda(
+                structures, [torch.tensor(b[w], dtype=dtype, device=cuda)
+                             for b in base], t, 1e-6, tlin.F32_JITTER_MULT))
+        tol = 1e-11 if dtype == torch.float64 else 1e-3
+        for a, b in zip(g, g_ref):
+            assert float((a - b).abs().max()) <= \
+                tol * float(b.abs().max()), (N, a, b)
 
 
 @pytest.mark.cuda
@@ -433,3 +480,86 @@ def test_implicit_gradient_on_card_matches_cpu(cuda):
     (v_gpu, g_gpu), (v_cpu, g_cpu) = out["cuda"], out["cpu"]
     assert abs(v_gpu - v_cpu) <= 1e-9 * abs(v_cpu)
     assert np.max(np.abs(g_gpu - g_cpu)) <= 1e-6 * np.max(np.abs(g_cpu))
+
+
+def _rows(g, rows=4, seed=3):
+    theta0 = g.get_parameters(include_frozen=True)
+    out = theta0[None, :] * np.exp(
+        0.1 * np.random.default_rng(seed).standard_normal((rows,
+                                                            theta0.size)))
+    out[0] = theta0
+    return out
+
+
+@pytest.mark.cuda
+def test_batched_fit_on_card_matches_cpu(cuda):
+    """``elbo_fit_batch`` of four rows on the card and on the CPU: ELBO
+    relative 1e-9, state 1e-7, equal sweep counts; B1 runs once per matrix
+    of every row, into one buffer."""
+    out = {}
+    for device in (cuda, "cpu"):
+        g = _headline_small(device)
+        eng, data = g.engine, g._data()
+        thetas = g._tensor(_rows(g))
+        mu0, var0 = eng.init_mu_var(thetas, data[1])
+        before = ck.LAUNCHES["kernel_matrix"]
+        res = eng.elbo_fit_batch(thetas, *data, mu0, var0, 200)
+        launched = ck.LAUNCHES["kernel_matrix"] - before
+        assert launched == (16 if device == cuda else 0)
+        assert res[0].device.type == str(device).split(":")[0]
+        out[str(device)] = [r.cpu() for r in res]
+        fixed = eng.elbo_fixed_batch(thetas, *data, mu0, var0, 3)
+        for w in range(4):
+            one = eng.elbo_fixed(thetas[w], *data, mu0[w], var0[w], 3)
+            assert abs(float(fixed[w] - one)) <= 1e-9 * abs(float(one))
+    (e, mu, var, n, c), (e_c, mu_c, var_c, n_c, c_c) = out["cuda"], \
+        out["cpu"]
+    assert torch.equal(n, n_c) and torch.equal(c, c_c)
+    torch.testing.assert_close(e, e_c, rtol=1e-9, atol=0)
+    for a, b in ((mu, mu_c), (var, var_c)):
+        assert float((a - b).abs().max() / (1 + b.abs().max())) <= 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_restarts", [1, 2])
+def test_optimize_device_on_card_matches_cpu(n_restarts, cuda):
+    out = {}
+    for device in (cuda, "cpu"):
+        g = _headline_small(device)
+        out[str(device)] = g.optimize_device(n_sweeps=3, max_iter=10,
+                                             n_restarts=n_restarts)
+    got, ref = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(got["x"], ref["x"], rtol=1e-8)
+    assert (got["nit"], got["nfev"]) == (ref["nit"], ref["nfev"])
+    assert abs(got["elbo"] - ref["elbo"]) <= 1e-9 * abs(ref["elbo"])
+
+
+@pytest.mark.cuda
+def test_samplers_on_card(cuda):
+    """The host loop with scipy priors gives the CPU's chain; the device
+    chain draws on the card and gives finite log-probabilities; the
+    evidence batch equals the CPU's."""
+    from scipy import stats
+
+    from gpyrn_tpu_torch.inference import priors as tpri
+    from gpyrn_tpu_torch.inference.evidence import batch_elbo
+    chains, elbos = {}, {}
+    for device in (cuda, "cpu"):
+        g = _headline_small(device)
+        priors = {n: stats.lognorm(s=0.3, scale=v)
+                  for n, v in g.parameters_dict.items()}
+        chains[str(device)] = g.mcmc(priors, p0=g.get_parameters(), niter=2,
+                                     elbo_max_iter=30, seed=1)
+        elbos[str(device)] = batch_elbo(g, _rows(g, 3), max_iter=30)
+    np.testing.assert_allclose(chains["cuda"].chain, chains["cpu"].chain,
+                               rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(chains["cuda"].log_prob,
+                               chains["cpu"].log_prob, rtol=1e-8)
+    np.testing.assert_allclose(elbos["cuda"], elbos["cpu"], rtol=1e-9)
+    g = _headline_small(cuda)
+    priors = {n: tpri.LogNormal(np.log(v), 0.3)
+              for n, v in g.parameters_dict.items()}
+    res = g.mcmc(priors, p0=g.get_parameters(), niter=3, elbo_max_iter=30,
+                 seed=1, check_every=2)
+    assert res.chain.shape == (3, 26, 13)
+    assert np.all(np.isfinite(res.log_prob)) and 0 <= res.acceptance <= 1

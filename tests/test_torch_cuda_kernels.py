@@ -350,6 +350,56 @@ def test_linalg_stack_equals_the_matrices_one_by_one(cases, dtype):
     assert ck.LAUNCHES == before                   # no launch on the CPU
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("cases", list(STACK_CASES))
+def test_linalg_rows_equal_the_stacks_row_by_row(cases, dtype):
+    """linalg.kernel_matrix_rows on a CPU tensor: row w is exactly
+    kernel_matrix_stack of row w's parameters, with either jitter rule, and
+    the gradient of every (W, n) parameter tensor is the per-row stacks'
+    (1e-12 of the largest entry in float64, 1e-5 in float32)."""
+    structures = [s for s, _ in STACK_CASES[cases]]
+    W = 3
+    t = torch.tensor(_times(24), dtype=dtype)
+    rng = np.random.default_rng(5)
+    base = [np.asarray(pars) * np.exp(0.1 * rng.standard_normal(
+        (W, len(pars)))) for _, pars in STACK_CASES[cases]]
+    G = torch.tensor(rng.standard_normal((W, len(structures), 24, 24)),
+                     dtype=dtype)
+    before = dict(ck.LAUNCHES)
+    for mult in (tlin.F32_JITTER_MULT, 0.0):
+        rows = [torch.tensor(b, dtype=dtype, requires_grad=True)
+                for b in base]
+        K = tlin.kernel_matrix_rows(structures, rows, t, jitter_mult=mult)
+        g = torch.autograd.grad(K, rows, grad_outputs=G)
+        assert K.shape == (W, len(structures), 24, 24)
+        per_row = [[torch.tensor(b[w], dtype=dtype, requires_grad=True)
+                    for b in base] for w in range(W)]
+        for w in range(W):
+            Kw = tlin.kernel_matrix_stack(structures, per_row[w], t,
+                                          jitter_mult=mult)
+            assert torch.equal(K[w], Kw.detach())
+            gw = torch.autograd.grad(Kw, per_row[w], grad_outputs=G[w])
+            tol = 1e-12 if dtype == torch.float64 else 1e-5
+            for a, b in zip((x[w] for x in g), gw):
+                assert float((a - b).abs().max()) <= \
+                    tol * float(b.abs().max())
+    with pytest.raises(ValueError, match="jitter_mult"):
+        tlin.kernel_matrix_rows(structures, rows, t, jitter_mult=1.0)
+    assert ck.LAUNCHES == before                   # no launch on the CPU
+
+
+def test_rows_wrapper_refuses_what_it_does_not_take():
+    t = _f64(_times(10))
+    rows = torch.tensor([[1.0, 2.0], [1.5, 2.5]], dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck.kernel_matrix_rows_cuda([("SE",)], [rows], t, 1e-6, 4.0)
+    with pytest.raises(ValueError, match="one parameter tensor"):
+        ck.kernel_matrix_rows_cuda([("SE",), ("SE",)], [rows], t, 1e-6, 4.0)
+    with pytest.raises(ValueError, match="at least one"):
+        ck.kernel_matrix_rows_cuda([], [], t, 1e-6, 4.0)
+
+
 def test_stack_wrapper_refuses_what_it_does_not_take():
     t = _f64(_times(10))
     with pytest.raises(ValueError, match="CUDA"):

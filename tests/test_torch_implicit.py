@@ -159,12 +159,12 @@ def test_implicit_matches_unrolled_from_the_fixed_point():
 
 def test_kernel_matrices_backward_runs_twice_per_call(fixed_point,
                                                       monkeypatch):
-    """A hook on each stack of kernel matrices counts the pull-backs that
-    reach it: 2 per call for each of the two stacks (nodes, weights),
-    whatever the number of Krylov steps."""
+    """A hook on the lattice of kernel matrices (nodes and weights, built
+    in one ``kernel_matrix_rows`` call) counts the pull-backs that reach
+    it: 2 per call, whatever the number of Krylov steps."""
     _, _, eng, args = fixed_point
     counts = []
-    real = tg.kernel_matrix_stack
+    real = tg.kernel_matrix_rows
 
     def counted(*a, **kw):
         K = real(*a, **kw)
@@ -172,7 +172,7 @@ def test_kernel_matrices_backward_runs_twice_per_call(fixed_point,
             K.register_hook(lambda g: counts.append(1))
         return K
 
-    monkeypatch.setattr(tg, "kernel_matrix_stack", counted)
+    monkeypatch.setattr(tg, "kernel_matrix_rows", counted)
     res = ti.make_implicit_value_and_grad(eng)(*args)
     assert res.pullbacks > 4
-    assert len(counts) == 2 * 2
+    assert len(counts) == 2
