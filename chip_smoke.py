@@ -71,8 +71,9 @@ ends non-zero:
     implicit call (headline model), then B1's and B1′'s device times
     against their plain versions' and their bounds; in a second one
     (``--profile-batch``) a traced sweep of the 13-row θ batch beside one
-    of its rows alone, and the share of ``_prepare`` in a 68-row
-    ``optimize_device`` objective call.  After some dozens of profiled runs and ~150k
+    of its rows alone, a traced 4-row batched gradient call (phase 21's),
+    and the share of ``_prepare`` in a 68-row ``optimize_device``
+    objective call.  After some dozens of profiled runs and ~150k
     traced kernels in one process, torch.profiler was seen to lose records
     (an H100, torch 2.11; the first process sat at that edge once the
     batched traces were in it), so the profiled work gets processes of
@@ -90,10 +91,28 @@ ends non-zero:
     priors against the cached JAX host-loop chain, and the device chain
     with the port's priors; ensemble steps per second;
 20. ``evidence.batch_elbo`` over 8 parameter rows against the cached JAX
-    values.
+    values;
+21. the θ-batched gradient: ``elbo_fixed_batch`` of 4 rows (5 sweeps)
+    under ``torch.autograd.grad`` against each row's single-θ gradient on
+    the card and the cached JAX ``vmap(value_and_grad)``; B1′ launches
+    (4 per row), wall, peak memory, and the host's ms to enqueue the
+    backward of a 4-row lattice (one B1′ launch per row and structure);
+22. HMC (``inference.hmc``, 4 leapfrog steps, 5 sweeps, log-normal
+    priors, from the converged fit): 2 chains fed the JAX key tree's
+    draws against the cached JAX chain, then the user's
+    ``mcmc(sampler='hmc')`` with 4 chains, 10 warmup steps and 10 samples
+    drawing on the card; steps and leapfrog steps per second, launches,
+    peak memory;
+23. NUTS: the same with ``algorithm='nuts'`` (max depth 3 against JAX;
+    the user's call 5 transitions at the initial step, max depth 4),
+    leapfrog steps per transition;
+24. ``parallel.multistart.multistart_optimize`` (4 restarts, adam and
+    ``nm``) and the nonparametric ``ELBOcalc`` (k=2, 20 steps) against the
+    cached JAX results; wall times and launches.
 
 The launch counts are set to 0 before each path (phases 3–5, phases
-6–7, phases 11–12, phases 13–15, phases 17–20) and read after it.  The
+6–7, phases 11–12, phases 13–15, phases 17–20, phases 21–24) and read
+after it.  The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -191,6 +210,8 @@ ADAM_IMPLICIT_X_RTOL = 1e-6
 GRAD_VALUE_RTOL = 1e-9
 GRAD_TOL = 1e-8
 ADAM_X_RTOL = 1e-8
+# the multistart winner's parameters against the JAX package's
+THETA_RTOL = 1e-7
 # float32 against float64 on the card, max |Δg| / max |g| (measured
 # 1.6e-2): the float32 jitter 4·eps·N·k(0) changes the model itself, not
 # just its rounding
@@ -288,6 +309,26 @@ EVIDENCE = {"rows": 8, "spread": 0.1, "seed": 11, "max_iter": 100}
 OPT_RESTART_ORACLE_ITERS = 8
 MCMC_ORACLE_STEPS = 2
 
+# the gradient paths over a batch (phases 21-24, headline model, N=1000):
+# the θ-batched gradient of 4 rows (log-normal perturbations of 0.1, each
+# row from its heuristic start), the samplers on it (log-normal priors of
+# width PRIOR_WIDTH, p0 = the model's parameters after a converged fit;
+# the oracle runs are fed the JAX key tree's draws, the user's calls
+# draw on the card), the multistart population and nonparametric VI
+GRAD_BATCH = {"rows": 4, "spread": 0.1, "seed": 13, "n_sweeps": 5}
+HMC = {"n_leapfrog": 4, "n_sweeps": 5, "seed": 0, "initial_step": 0.005}
+HMC_ORACLE = {"algorithm": "hmc", "n_chains": 2, "n_warmup": 0,
+              "n_samples": 3}
+NUTS_ORACLE = {"algorithm": "nuts", "n_chains": 2, "n_warmup": 0,
+               "n_samples": 2, "max_depth": 3}
+HMC_RUN = {"algorithm": "hmc", "niter": 10, "n_warmup": 10, "n_chains": 4}
+NUTS_RUN = {"algorithm": "nuts", "niter": 5, "n_warmup": 0, "n_chains": 4,
+            "max_depth": 4}
+MULTISTART = {"n_restarts": 4, "n_steps": 5, "n_sweeps": 5}
+MULTISTART_NM = {"n_restarts": 4, "n_steps": 10, "n_sweeps": 5,
+                 "method": "nm"}
+NPV = {"k": 2, "iterations": 20, "seed": 0}
+
 
 def batch_thetas(theta0, rows, spread, seed):
     """``rows`` copies of the parameter vector ``theta0``, each entry
@@ -298,6 +339,25 @@ def batch_thetas(theta0, rows, spread, seed):
         spread * rng.standard_normal((rows, theta0.size)))
     out[0] = theta0
     return out
+
+
+def fitted_headline(pkg, **kw):
+    """The headline model after a converged ``ELBOcalc``: the samplers'
+    warm start."""
+    g = headline_problem(pkg, **kw)
+    g.ELBOcalc()
+    return g
+
+
+def npv_problem(npv_module, g, cfg):
+    """A nonparametric inference of ``npv_module`` (either package's) on
+    the data of the mean-field ``g``, with ``cfg['k']`` components."""
+    data = []
+    for y, yerr in zip(np.asarray(g.y), np.asarray(g.yerr)):
+        data += [y, yerr]
+    kw = {"device": g.device} if hasattr(g, "device") else {}
+    return npv_module.inference(g.q, np.asarray(g.time, dtype=float),
+                                cfg["k"], *data, **kw)
 
 
 def headline_priors(g, lognormal):
@@ -1688,8 +1748,9 @@ def phase_batch_elbo(torch, pkg, oracle):
 
 def trace_batched_sweep(torch, pkg):
     """One traced sweep of the 13-row batch and one of its first row alone
-    (headline model, N=1000, float64, the state from the heuristic start):
-    wall, device time, launches, idle share."""
+    (headline model, N=1000, float64, the state from the heuristic start),
+    and one traced gradient call of the ``GRAD_BATCH`` rows (a leapfrog
+    step of 4 chains): wall, device time, launches, idle share."""
     g = headline_problem(pkg, device="cuda")
     eng, data = g.engine, g._data()
     thetas, mu0, var0 = _batch_inputs(g, BATCH)
@@ -1705,6 +1766,26 @@ def trace_batched_sweep(torch, pkg):
         sweep()
         wall, kernels = _traced(torch, sweep)
         _trace_summary(what, wall, kernels, {})
+    rows = g._tensor(batch_thetas(g.get_parameters(include_frozen=True),
+                                  GRAD_BATCH["rows"], GRAD_BATCH["spread"],
+                                  GRAD_BATCH["seed"]))
+    mu, var = eng.init_mu_var(rows, g._tensor(g.y))
+
+    def grad_call():
+        T = rows.clone().requires_grad_(True)
+        with torch.enable_grad():
+            elbo = eng.elbo_fixed_batch(T, *data, mu, var,
+                                        GRAD_BATCH["n_sweeps"])
+            return torch.autograd.grad(elbo.sum(), T)
+
+    grad_call()
+    wall, kernels = _traced(torch, grad_call)
+    n_k = 4 * GRAD_BATCH["rows"]
+    _trace_summary(f"batched gradient ({GRAD_BATCH['rows']} rows, "
+                   f"{GRAD_BATCH['n_sweeps']} sweeps)", wall, kernels,
+                   {"kernel_matrix_kernel": n_k,
+                    # B1′ is two kernels: the contraction and its sum
+                    "kernel_matrix_grad": 2 * n_k})
     # a 68-row objective call of optimize_device with 4 restarts (the
     # population's candidates of one iteration, 3 sweeps): the host's and
     # the card's ms of its _prepare against those of the whole call
@@ -1857,6 +1938,229 @@ def phase_trainer(torch, pkg, oracle):
         raise AssertionError("trainer: optimize_adam disagrees with jax")
 
 
+def phase_batched_grad(torch, pkg, oracle, ck, lin):
+    """``elbo_fixed_batch`` of the ``GRAD_BATCH`` rows under
+    ``torch.autograd.grad`` on the card against each row's single-θ
+    ``elbo_value_and_grad`` on the card and the cached JAX
+    ``vmap(value_and_grad)``; B1′ launches, wall, peak memory, and the
+    host's ms to enqueue the lattice's backward (the per-row,
+    per-structure launch loop) against the call's wall.  Returns the
+    call's wall (s)."""
+    ref, cfg = oracle["batched_grad"], GRAD_BATCH
+    rows, n_sweeps = cfg["rows"], cfg["n_sweeps"]
+    g = headline_problem(pkg, device="cuda")
+    eng, data = g.engine, g._data()
+    thetas = g._tensor(batch_thetas(g.get_parameters(include_frozen=True),
+                                    rows, cfg["spread"], cfg["seed"]))
+    mu0, var0 = eng.init_mu_var(thetas, data[1])
+
+    def call():
+        T = thetas.clone().requires_grad_(True)
+        with torch.enable_grad():
+            elbo = eng.elbo_fixed_batch(T, *data, mu0, var0, n_sweeps)
+            (grad,) = torch.autograd.grad(elbo.sum(), T)
+        return elbo.detach(), grad
+
+    call()                                                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    before = ck.LAUNCHES["kernel_matrix_grad"]
+    (value, grad), wall = _timed(torch, call)
+    launched = ck.LAUNCHES["kernel_matrix_grad"] - before
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counted = dict(ck.LAUNCHES)
+    singles = [eng.elbo_value_and_grad(thetas[w], *data, mu0[w], var0[w],
+                                       n_sweeps) for w in range(rows)]
+    value, grad = value.cpu().numpy(), grad.cpu().numpy()
+
+    # the backward's host loop alone: the (rows, 4, N, N) lattice of the
+    # headline structures, its backward enqueued against a fixed adjoint
+    structures = [("QP",)] + [("SE",)] * 3
+    pars = [(1.0, 30.0, 20.0, 0.7)] + [(1.0 + 0.05 * k, 30.0)
+                                       for k in range(3)]
+    params = [p.requires_grad_(True) for p in
+              _row_params(torch, pars, rows, torch.float64, rows)]
+    t = data[0]
+    K = lin.kernel_matrix_rows(structures, params, t)
+    G = torch.randn(K.shape, dtype=K.dtype, device=K.device,
+                    generator=torch.Generator(device=K.device).manual_seed(0))
+    host_ms, done_ms = _host_ms(torch, lambda: torch.autograd.grad(
+        K, params, grad_outputs=G, retain_graph=True), 50)
+    # the comparisons are not the path
+    ck.LAUNCHES.update(counted)
+
+    v_single = float(np.max(np.abs(value - [float(s[0]) for s in singles])
+                            / np.abs(value)))
+    g_single = max(_grad_error(grad[w], singles[w][1].cpu().numpy())
+                   for w in range(rows))
+    v_jax = float(np.max(np.abs(value - ref["value"]) /
+                         np.abs(ref["value"])))
+    g_jax = _grad_error(grad, ref["grad"])
+    print(f"batched gradient: elbo_fixed_batch of {rows} rows, {n_sweeps} "
+          f"sweeps, N={N_MAIN}, float64: {1e3 * wall:.3f} ms per call, peak "
+          f"device memory {peak:.3f} GiB, B1' launches {launched}; the "
+          f"backward's launch loop over the ({rows}, 4, {N_MAIN}, {N_MAIN}) "
+          f"lattice: {host_ms:.4f} ms of host per call ({done_ms:.4f} ms "
+          f"until the card is done), {host_ms / (1e3 * wall):.4f} of the "
+          f"gradient call", flush=True)
+    _check("batched gradient", [
+        ("values vs single rows", v_single <= GRAD_VALUE_RTOL,
+         f"max rel {v_single:.3e} (limit {GRAD_VALUE_RTOL})"),
+        ("gradients vs single rows", g_single <= GRAD_TOL,
+         f"max|dg|/max|g| {g_single:.3e} (limit {GRAD_TOL})"),
+        ("values vs jax", v_jax <= GRAD_VALUE_RTOL,
+         f"max rel {v_jax:.3e} (limit {GRAD_VALUE_RTOL})"),
+        ("gradients vs jax", g_jax <= GRAD_TOL,
+         f"max|dg|/max|g| {g_jax:.3e} (limit {GRAD_TOL})"),
+        ("B1' launches (rows x matrices)", launched == 4 * rows,
+         f"{launched} vs {4 * rows}"),
+    ])
+    return wall
+
+
+def phase_sampler(torch, pkg, oracle, ck, algorithm, grad_wall):
+    """HMC or NUTS of the headline model on the card: (a) the oracle's
+    run fed the JAX key tree's draws against the cached JAX chain; (b)
+    the user's ``mcmc(sampler='hmc')`` with the card's draws: finite
+    log-probabilities, acceptance in [0, 1], a finite positive step size;
+    steps and leapfrog steps per second, launches, peak memory."""
+    from gpyrn_tpu_torch.inference import priors as port_priors
+    from gpyrn_tpu_torch.inference.hmc import GivenDraws, run_hmc
+    ref = oracle["hmc"][algorithm]
+    name = algorithm.upper()
+    g = fitted_headline(pkg, device="cuda")
+    priors = headline_priors(g, port_priors.LogNormal)
+    kw = {k: v for k, v in ref.items()
+          if k not in ("chain", "log_prob", "acceptance", "step_size",
+                       "draws")}
+    res = run_hmc(g, priors, p0=g.get_parameters(),
+                  draws=GivenDraws(ref["draws"]), **kw)
+    chain_err = _rel_state_err(res.chain, ref["chain"])
+    lp_err = float(np.max(np.abs(res.log_prob - ref["log_prob"])
+                          / np.abs(ref["log_prob"])))
+    acc_err = abs(res.acceptance - ref["acceptance"])
+    # the acceptance statistic is a mean of min(1, exp(-ΔE)), ΔE a
+    # difference of log-probabilities of this size: it inherits their
+    # error in absolute terms
+    acc_tol = 2 * ELBO_RTOL * float(np.max(np.abs(ref["log_prob"])))
+    print(f"{name} fed the JAX draws: {kw}: acceptance {res.acceptance!r} "
+          f"(jax {ref['acceptance']!r}), log-probs "
+          f"{res.log_prob[-1].tolist()}", flush=True)
+
+    cfg = HMC_RUN if algorithm == "hmc" else NUTS_RUN
+    run = {**HMC, **cfg}
+    g = fitted_headline(pkg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ck.LAUNCHES)
+    user, wall = _timed(torch, lambda: g.mcmc(
+        priors, p0=g.get_parameters(), sampler="hmc", **run))
+    launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = run["n_warmup"] + run["niter"]
+    chains = run["n_chains"]
+    # one gradient call per leapfrog step, and per step one more (HMC:
+    # the trajectory's first gradient; NUTS: the tree's start)
+    row_grads = launched["kernel_matrix_grad"] // 4
+    leapfrog = row_grads - chains * steps
+    print(f"{name} mcmc(sampler='hmc', {cfg}, {HMC}) on the card: "
+          f"{steps} steps of {chains} chains in {wall:.3f} s "
+          f"({steps / wall:.3f} steps per second, "
+          f"{leapfrog / chains / wall:.3f} leapfrog steps per second per "
+          f"chain, {leapfrog / (chains * steps):.3f} leapfrog steps per "
+          f"chain and step; the initial fit included), acceptance "
+          f"{user.acceptance:.4f}, step size {user.step_size!r}, max "
+          f"log-prob {float(np.max(user.log_prob)):.4f}, peak device memory "
+          f"{peak:.3f} GiB, launches {launched}; one 4-row gradient call "
+          f"{1e3 * grad_wall:.3f} ms (phase 21)", flush=True)
+    checks = [
+        ("chain vs jax", chain_err <= STATE_TOL,
+         f"{chain_err:.3e} (limit {STATE_TOL})"),
+        ("log-probs vs jax", lp_err <= ELBO_RTOL,
+         f"max rel {lp_err:.3e} (limit {ELBO_RTOL})"),
+        ("acceptance vs jax", acc_err <= acc_tol,
+         f"|diff| {acc_err:.3e} (limit {acc_tol:.3e})"),
+        ("step size vs jax", res.step_size == ref["step_size"],
+         f"{res.step_size!r}"),
+        ("user's chain shape", user.chain.shape ==
+         (run["niter"], chains, len(g.parameters_dict)),
+         f"{user.chain.shape}"),
+        ("user's log-probs finite", bool(np.all(np.isfinite(
+            user.log_prob))), f"{user.log_prob.shape}"),
+        ("user's acceptance in [0, 1]", 0 <= user.acceptance <= 1,
+         f"{user.acceptance:.4f}"),
+        ("user's step size finite and positive",
+         bool(np.isfinite(user.step_size) and user.step_size > 0),
+         f"{user.step_size!r}"),
+    ]
+    if algorithm == "hmc":
+        expect = 4 * chains * steps * (run["n_leapfrog"] + 1)
+        checks.append(("B1' launches", launched["kernel_matrix_grad"] ==
+                       expect, f"{launched['kernel_matrix_grad']} vs "
+                       f"{expect}"))
+    _check(name, checks)
+
+
+def phase_search(torch, pkg, oracle, ck):
+    """``multistart_optimize`` (adam and nm) and the nonparametric
+    ``ELBOcalc`` of the headline model on the card against the cached JAX
+    results; wall times and B1 launches."""
+    from gpyrn_tpu_torch.inference import nonparametric
+    from gpyrn_tpu_torch.parallel.multistart import multistart_optimize
+    checks = []
+    for name, cfg in (("adam", MULTISTART), ("nm", MULTISTART_NM)):
+        ref = oracle["multistart"][name]
+        g = headline_problem(pkg, device="cuda")
+        before = dict(ck.LAUNCHES)
+        res, wall = _timed(torch, lambda: multistart_optimize(g, **cfg))
+        launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
+        e_err = float(np.max(np.abs(res["restart_elbos"] -
+                                    ref["restart_elbos"]) /
+                             np.abs(ref["restart_elbos"])))
+        x_err = _x_rel(res["theta"], ref["theta"])
+        print(f"multistart {cfg}: {wall:.3f} s (the final ELBOcalc "
+              f"included), winner {res['winner']}, restart ELBOs "
+              f"{np.asarray(res['restart_elbos']).tolist()}, launches "
+              f"{launched}", flush=True)
+        checks += [
+            (f"{name}: restart ELBOs vs jax", e_err <= ELBO_RTOL,
+             f"max rel {e_err:.3e} (limit {ELBO_RTOL})"),
+            (f"{name}: winner vs jax", res["winner"] == ref["winner"],
+             f"{res['winner']} vs {ref['winner']}"),
+            (f"{name}: winner's theta vs jax", x_err <= THETA_RTOL,
+             f"max rel {x_err:.3e} (limit {THETA_RTOL})"),
+            (f"{name}: ELBO at the winner vs jax",
+             _rel(res["elbo"], ref["elbo"]) <= ELBO_RTOL,
+             f"rel {_rel(res['elbo'], ref['elbo']):.3e}")]
+        if name == "nm":
+            checks.append(("nm: nit vs jax", np.asarray(res["nit"]).tolist()
+                           == ref["nit"], f"{np.asarray(res['nit'])}"))
+
+    ref = oracle["npv"]
+    g = headline_problem(pkg, device="cuda")
+    npv = npv_problem(nonparametric, g, NPV)
+    before = ck.LAUNCHES["kernel_matrix"]
+    (elbo, mu, std), wall = _timed(torch, lambda: npv.ELBOcalc(
+        g.nodes, g.weights, g.means, g.jitters, iterations=NPV["iterations"],
+        seed=NPV["seed"]))
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    traj_err = float(np.max(np.abs(npv._traj - ref["traj"]) /
+                            np.abs(ref["traj"])))
+    mu_err = _rel_state_err(mu[:, ::ref["stride"]], ref["mu"])
+    print(f"nonparametric ELBOcalc {NPV}, d={npv.d}: {wall:.3f} s, ELBO "
+          f"{elbo!r} (jax {ref['elbo']!r}), B1 launches {launched}",
+          flush=True)
+    checks += [
+        ("npv: ELBO vs jax", _rel(elbo, ref["elbo"]) <= ELBO_RTOL,
+         f"rel {_rel(elbo, ref['elbo']):.3e} (limit {ELBO_RTOL})"),
+        ("npv: trajectory vs jax", traj_err <= ELBO_RTOL,
+         f"max rel {traj_err:.3e}"),
+        ("npv: means vs jax", mu_err <= STATE_TOL, f"{mu_err:.3e}"),
+        ("npv: std-devs vs jax", _x_rel(std, ref["std"]) <= STATE_TOL,
+         f"max rel {_x_rel(std, ref['std']):.3e}"),
+        ("npv: B1 launches (one lattice per fit)", launched == 4,
+         f"{launched}")]
+    _check("search", checks)
+
+
 def _child(arg):
     """The output lines of this script run with ``arg`` in a fresh
     process; its failure fails the run."""
@@ -1990,13 +2294,35 @@ def main():
         raise AssertionError("the batched path never launched "
                              "kernel_matrix")
 
+    # the gradient paths over a batch: the θ-batched gradient, HMC and
+    # NUTS on it, the multistart population and nonparametric VI
+    ck.reset_launch_counts()
+    print("== phase 21: batched gradient, headline model, 4 rows",
+          flush=True)
+    t_sampler = time.perf_counter()
+    grad_wall = phase_batched_grad(torch, pkg, oracle, ck, lin)
+    print("== phase 22: HMC, headline model", flush=True)
+    phase_sampler(torch, pkg, oracle, ck, "hmc", grad_wall)
+    print("== phase 23: NUTS, headline model", flush=True)
+    phase_sampler(torch, pkg, oracle, ck, "nuts", grad_wall)
+    print("== phase 24: multistart and nonparametric VI, headline model",
+          flush=True)
+    phase_search(torch, pkg, oracle, ck)
+    sampler_launches = dict(ck.LAUNCHES)
+    print(f"sampler path launches: {sampler_launches}; phases 21-24 took "
+          f"{time.perf_counter() - t_sampler:.1f} s", flush=True)
+    if min(sampler_launches.values()) == 0:
+        raise AssertionError("the sampler path never launched one of its "
+                             f"kernels: {sampler_launches}")
+
     kernels = []
     for kname, rec in (("kernel_matrix", record),
                        ("kernel_matrix_grad", grad_record)):
         by_path = {"fit": fit_launches[kname], "grad": grad_launches[kname],
                    "mixed": mixed_launches[kname],
                    "implicit": implicit_launches[kname],
-                   "batch": batch_launches[kname]}
+                   "batch": batch_launches[kname],
+                   "sampler": sampler_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",

@@ -19,7 +19,12 @@
   with ``chip_smoke.OPT_RESTARTS`` restarts (cut to
   ``OPT_RESTART_ORACLE_ITERS`` iterations), the ensemble sampler's host
   loop with scipy priors (cut to ``MCMC_ORACLE_STEPS`` steps) and
-  ``evidence.batch_elbo`` over the rows of ``chip_smoke.EVIDENCE``.
+  ``evidence.batch_elbo`` over the rows of ``chip_smoke.EVIDENCE``;
+* the gradient paths over a batch: ``vmap(value_and_grad(elbo_fixed))``
+  over the rows of ``chip_smoke.GRAD_BATCH``, ``run_hmc`` with HMC and
+  NUTS (``chip_smoke.HMC_ORACLE`` / ``NUTS_ORACLE``) and the draws of its
+  key tree (:func:`jax_hmc_draws`), ``multistart_optimize`` with adam
+  and ``nm``, and the nonparametric ``ELBOcalc``.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_oracle.py [--all]
 
@@ -192,6 +197,137 @@ def batch_elbo_section(gpyrn_tpu):
                                           cfg["max_iter"])).tolist()}
 
 
+def batched_grad_section(gpyrn_tpu):
+    """``vmap(value_and_grad(elbo_fixed))`` over the rows of
+    ``chip_smoke.GRAD_BATCH``, each from its heuristic start."""
+    import jax
+    import jax.numpy as jnp
+    g = chip_smoke.headline_problem(gpyrn_tpu)
+    eng, cfg = g.engine, chip_smoke.GRAD_BATCH
+    t = np.asarray(g.time, dtype=float)
+    th = jnp.asarray(chip_smoke.batch_thetas(
+        g.get_parameters(include_frozen=True), cfg["rows"], cfg["spread"],
+        cfg["seed"]))
+    mu, var = jax.vmap(lambda x: eng.init_mu_var(x, g.y))(th)
+    vg = jax.value_and_grad(lambda x, m, v: eng.elbo_fixed(
+        x, t, g.y, g.yerr2, m, v, cfg["n_sweeps"]))
+    value, grad = jax.jit(jax.vmap(vg))(th, mu, var)
+    return {"N": chip_smoke.N_MAIN, **cfg,
+            "value": np.asarray(value).tolist(),
+            "grad": np.asarray(grad).tolist()}
+
+
+def hmc_section(gpyrn_tpu):
+    """``run_hmc`` with ``chip_smoke.HMC`` and the oracle settings of HMC
+    and NUTS, with the draws of its key tree."""
+    from gpyrn_tpu.inference import priors
+    from gpyrn_tpu.inference.hmc import run_hmc
+    out = {"N": chip_smoke.N_MAIN, "prior_width": chip_smoke.PRIOR_WIDTH}
+    for name, cfg in (("hmc", chip_smoke.HMC_ORACLE),
+                      ("nuts", chip_smoke.NUTS_ORACLE)):
+        g = chip_smoke.fitted_headline(gpyrn_tpu)
+        kw = {**chip_smoke.HMC, **cfg}
+        res = run_hmc(g, chip_smoke.headline_priors(g, priors.LogNormal),
+                      p0=g.get_parameters(), **kw)
+        draws = jax_hmc_draws(kw["seed"], kw["n_chains"],
+                              res.chain.shape[-1], kw["n_warmup"],
+                              kw["n_samples"], algorithm=kw["algorithm"],
+                              max_depth=kw.get("max_depth", 8))
+        out[name] = {**kw, "chain": res.chain.tolist(),
+                     "log_prob": res.log_prob.tolist(),
+                     "acceptance": float(res.acceptance),
+                     "step_size": float(res.step_size),
+                     "draws": [{k: v.tolist() for k, v in seg.items()}
+                               for seg in draws]}
+    return out
+
+
+def multistart_section(gpyrn_tpu):
+    from gpyrn_tpu.parallel.multistart import multistart_optimize
+    out = {"N": chip_smoke.N_MAIN}
+    for name, cfg in (("adam", chip_smoke.MULTISTART),
+                      ("nm", chip_smoke.MULTISTART_NM)):
+        res = multistart_optimize(chip_smoke.headline_problem(gpyrn_tpu),
+                                  **cfg)
+        out[name] = {**cfg, **{k: np.asarray(v).tolist()
+                               for k, v in res.items()}}
+    return out
+
+
+def npv_section(gpyrn_tpu):
+    from gpyrn_tpu.inference import nonparametric
+    cfg = chip_smoke.NPV
+    g = chip_smoke.headline_problem(gpyrn_tpu)
+    npv = chip_smoke.npv_problem(nonparametric, g, cfg)
+    elbo, mu, std = npv.ELBOcalc(g.nodes, g.weights, g.means, g.jitters,
+                                 iterations=cfg["iterations"],
+                                 seed=cfg["seed"])
+    return {"N": chip_smoke.N_MAIN, **cfg, "elbo": float(elbo),
+            "traj": np.asarray(npv._traj).tolist(), "std": std.tolist(),
+            "stride": STRIDE, "mu": np.asarray(mu)[:, ::STRIDE].tolist()}
+
+
+def jax_hmc_draws(seed, n_chains, ndim, n_warmup, n_samples, chunk=50,
+                  mass_matrix="diag", algorithm="hmc", max_depth=8):
+    """The draws of ``gpyrn_tpu.inference.hmc.run_hmc`` with these
+    settings, from its key tree, as the segments that
+    ``gpyrn_tpu_torch.inference.hmc.GivenDraws`` takes: ``PRNGKey(seed)``
+    split in 3 (the sampling key, warmup phase 1, phase 2); per segment
+    ``split(key, n_steps)``, per step ``split(·, n_chains)``; per HMC step
+    ``split(rng)`` (momentum, accept uniform); per NUTS transition
+    ``split(rng)`` (momentum, tree), per depth ``split(key, 4)`` (next,
+    direction, subtree, across) and per leaf ``split(key)``.  Which
+    segments run does not depend on the data."""
+    import gpyrn_tpu  # noqa: F401  (float64 in jax)
+    import jax
+    import jax.numpy as jnp
+
+    def hmc_one(rng):
+        k1, k2 = jax.random.split(rng)
+        return {"xi": jax.random.normal(k1, (ndim,), dtype=jnp.float64),
+                "u": jax.random.uniform(k2, dtype=jnp.float64)}
+
+    def nuts_one(rng):
+        k_mom, key = jax.random.split(rng)
+        kd, kb = [], []
+        ka = jnp.ones((max_depth, 1 << max(max_depth - 1, 0)))
+        for depth in range(max_depth):
+            key, k_d, ks, k_b = jax.random.split(key, 4)
+            kd.append(jax.random.bernoulli(k_d))
+            kb.append(jax.random.uniform(k_b))
+            for i in range(1 << depth):
+                ks, k_a = jax.random.split(ks)
+                ka = ka.at[depth, i].set(jax.random.uniform(k_a))
+        return {"xi": jax.random.normal(k_mom, (ndim,), dtype=jnp.float64),
+                "kd": jnp.stack(kd), "kb": jnp.stack(kb), "ka": ka}
+
+    one = hmc_one if algorithm == "hmc" else nuts_one
+    per_step = jax.jit(jax.vmap(lambda k: jax.vmap(one)(
+        jax.random.split(k, n_chains))))
+
+    def segment(key, n_steps):
+        out = per_step(jax.random.split(key, n_steps))
+        # chains last for the per-depth arrays, as GivenDraws reads them
+        return {k: np.moveaxis(np.asarray(v), 1, -1) if k != "xi"
+                else np.asarray(v) for k, v in out.items()}
+
+    key = jax.random.PRNGKey(seed)
+    key, k1, k2 = jax.random.split(key, 3)
+    n1 = n_warmup if mass_matrix == "identity" else n_warmup // 2
+    segments = []
+    if n1 > 0:
+        segments.append(segment(k1, n1))
+    if n_warmup - n1 > 0:
+        segments.append(segment(k2, n_warmup - n1))
+    done = 0
+    while done < n_samples:
+        k = min(chunk, n_samples - done)
+        key, sub = jax.random.split(key)
+        segments.append(segment(sub, k))
+        done += k
+    return segments
+
+
 def main():
     import gpyrn_tpu
     import jax
@@ -214,7 +350,11 @@ def main():
         "restarts cut to 8 iterations (optimize_device), the ensemble "
         "sampler's host loop with 26 walkers and scipy priors cut to 2 "
         "steps of the 10 the card runs (mcmc), and evidence.batch_elbo "
-        "over 8 rows (batch_elbo)")
+        "over 8 rows (batch_elbo); the gradient paths over a batch: "
+        "vmap(value_and_grad(elbo_fixed)) over 4 rows (batched_grad), "
+        "run_hmc with HMC and NUTS and the draws of its key tree (hmc), "
+        "multistart_optimize with adam and nm (multistart), and "
+        "nonparametric ELBOcalc (npv)")
     out["_command"] = COMMAND
     out.setdefault("_jax", jax.__version__)
     sections = list(fit_sections(gpyrn_tpu)) + [
@@ -226,7 +366,11 @@ def main():
         ("batch", lambda: batch_section(gpyrn_tpu)),
         ("optimize_device", lambda: optimize_device_section(gpyrn_tpu)),
         ("mcmc", lambda: mcmc_section(gpyrn_tpu)),
-        ("batch_elbo", lambda: batch_elbo_section(gpyrn_tpu))]
+        ("batch_elbo", lambda: batch_elbo_section(gpyrn_tpu)),
+        ("batched_grad", lambda: batched_grad_section(gpyrn_tpu)),
+        ("hmc", lambda: hmc_section(gpyrn_tpu)),
+        ("multistart", lambda: multistart_section(gpyrn_tpu)),
+        ("npv", lambda: npv_section(gpyrn_tpu))]
     for name, section in sections:
         if name in out:
             print(name, "kept", flush=True)

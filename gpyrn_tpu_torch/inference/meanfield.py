@@ -7,8 +7,8 @@ thaw, ``ELBO`` / ``ELBOcalc`` (float64, and ``precision='mixed'``: a
 float32 bulk fit and a float64 polish) / ``nELBO``, ``elbo_grad`` and
 ``optimize_adam`` (unrolled, and the implicit gradient of the converged
 ELBO), ``optimize`` (scipy), ``optimize_device`` (Nelder-Mead on the
-device over the θ-batched ELBO), ``mcmc`` (the native ensemble sampler;
-emcee when installed), ``predict`` / ``_Prediction``, ``sample``, and
+device over the θ-batched ELBO), ``mcmc`` (the native ensemble sampler,
+HMC and NUTS; emcee when installed), ``predict`` / ``_Prediction``, ``sample``, and
 ``save`` / ``load``, over the engine of :mod:`gpyrn_tpu_torch.models.gprn`.
 
 The device is the card (``device="cuda"``) unless the caller asks for
@@ -888,8 +888,11 @@ class inference:
         :mod:`gpyrn_tpu_torch.inference.ensemble` (all walkers' ELBO fits
         batched on the device; the device chain when every prior comes
         from :mod:`gpyrn_tpu_torch.inference.priors`, else the host loop);
-        ``sampler='emcee'`` drives emcee if it is installed;
-        ``sampler='hmc'`` is not ported yet and raises."""
+        ``sampler='hmc'`` runs HMC or NUTS on the ELBO gradient
+        (:mod:`gpyrn_tpu_torch.inference.hmc`, priors from
+        :mod:`gpyrn_tpu_torch.inference.priors`; ``nwalkers`` sets
+        ``n_chains``); ``sampler='emcee'`` drives emcee if it is
+        installed."""
         from gpyrn_tpu_torch.inference.ensemble import run_ensemble
         self._require_components()
         self._apply_vars_selection(vars)
@@ -905,9 +908,11 @@ class inference:
             raise ValueError(f'missing priors for parameters: {missing}')
 
         if sampler == 'hmc':
-            raise NotImplementedError(
-                "sampler='hmc' (Hamiltonian Monte Carlo on the ELBO "
-                "gradient, inference/hmc.py) is not ported yet: ROADMAP A10")
+            from gpyrn_tpu_torch.inference.hmc import run_hmc
+            if nwalkers_arg is not None:
+                kwargs.setdefault('n_chains', nwalkers_arg)
+            return run_hmc(self, priors, n_samples=niter, p0=p0,
+                           checkpoint=checkpoint, **kwargs)
         if sampler == 'emcee':
             return self._mcmc_emcee(priors, free_names, p0, niter, **kwargs)
 

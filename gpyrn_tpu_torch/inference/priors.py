@@ -86,8 +86,9 @@ class Uniform(_Prior):
     def logpdf(self, x):
         x = _tensor(x)
         inside = (x >= self.lo) & (x <= self.hi)
-        return _masked(inside, torch.full_like(x, -math.log(self.hi -
-                                                            self.lo)))
+        # 0·x keeps the density in x's graph: its gradient is 0, as
+        # jax.grad gives, where a constant would have none
+        return _masked(inside, 0.0 * x - math.log(self.hi - self.lo))
 
     def rvs(self, size=None, rng=None):
         rng = np.random.default_rng() if rng is None else rng

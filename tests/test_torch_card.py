@@ -563,3 +563,51 @@ def test_samplers_on_card(cuda):
                  seed=1, check_every=2)
     assert res.chain.shape == (3, 26, 13)
     assert np.all(np.isfinite(res.log_prob)) and 0 <= res.acceptance <= 1
+
+
+@pytest.mark.cuda
+def test_batched_backward_launches_per_row_and_structure(cuda):
+    """The backward of a (W, S, N, N) lattice launches B1′ W·S times, and
+    the θ-batched ELBO's gradient W·4 times (headline structures)."""
+    t = torch.tensor(_times(64), device=cuda)
+    structures = [("QP",)] + [("SE",)] * 3
+    rng = np.random.default_rng(2)
+    W = 3
+    params = [torch.tensor(np.asarray(p) * np.exp(0.1 * rng.standard_normal(
+        (W, len(p)))), device=cuda, requires_grad=True)
+        for p in [(1.0, 30.0, 20.0, 0.7)] + [(1.0, 30.0)] * 3]
+    K = tlin.kernel_matrix_rows(structures, params, t)
+    before = ck.LAUNCHES["kernel_matrix_grad"]
+    torch.autograd.grad(K.sum(), params)
+    assert ck.LAUNCHES["kernel_matrix_grad"] - before == W * len(structures)
+    g = _headline_small(cuda)
+    eng, data = g.engine, g._data()
+    thetas = g._tensor(_rows(g, W)).requires_grad_(True)
+    mu0, var0 = eng.init_mu_var(thetas.detach(), data[1])
+    before = ck.LAUNCHES["kernel_matrix_grad"]
+    with torch.enable_grad():
+        elbo = eng.elbo_fixed_batch(thetas, *data, mu0, var0, 3)
+        torch.autograd.grad(elbo.sum(), thetas)
+    assert ck.LAUNCHES["kernel_matrix_grad"] - before == 4 * W
+
+
+@pytest.mark.cuda
+def test_hmc_log_posterior_gradient_on_card_matches_cpu(cuda):
+    """The HMC log-posterior of 3 chains and its gradient on the card
+    equal the CPU's: values rel 1e-10, gradients 1e-9 of max |g|."""
+    from gpyrn_tpu_torch.inference import hmc as thmc
+    from gpyrn_tpu_torch.inference import priors as tpri
+    out = {}
+    for device in (cuda, "cpu"):
+        g = _headline_small(device)
+        g.ELBOcalc()
+        names = list(g.parameters_dict)
+        priors = [tpri.LogNormal(np.log(v), 0.3)
+                  for v in g.parameters_dict.values()]
+        _, vg = thmc._log_posterior(g, priors, np.arange(len(names)), 3)
+        z = g._tensor(np.log(g.get_parameters())[None, :] + 0.01 *
+                      np.random.default_rng(4).standard_normal((3, 13)))
+        out[str(device)] = [a.cpu() for a in vg(z)]
+    (v, gr), (v_c, g_c) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(v, v_c, rtol=1e-10, atol=0)
+    assert float((gr - g_c).abs().max() / g_c.abs().max()) <= 1e-9

@@ -271,8 +271,6 @@ def test_modes_that_are_not_ported_raise():
     g = _gprn()
     port = inference_from_jax(g, device="cpu")
     priors = _port_priors(g)
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.mcmc(priors, sampler="hmc")
     with pytest.raises(ImportError, match="emcee"):
         port.mcmc(priors, sampler="emcee")
     with pytest.raises(NotImplementedError, match="A15"):
