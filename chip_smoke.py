@@ -110,9 +110,29 @@ ends non-zero:
     ``nm``) and the nonparametric ``ELBOcalc`` (k=2, 20 steps) against the
     cached JAX results; wall times and launches.
 
+25–28. the large-N stack, in a fresh process (``chip_smoke.py --large``):
+    25(a) the lean engines at N=2000 (one float64 ``elbo_refine_lean``
+    sweep, three float32 ``fit_state_lean`` sweeps) against the cached
+    JAX values and the card's dense engine; 25(b) one float64 sweep of the
+    dense and of the lean engine from one state at N=5000 and 10,000,
+    headline and flagship (s/sweep, peak; the reading ``LEAN_N`` is set
+    from; at N=5000 also the dense sweep on MAGMA's batched solves);
+    25(c) at N=20,000 ``fit_state_lean``, ``elbo_fit_lean``,
+    ``elbo_refine_lean`` and ``ELBOcalc`` (the lean route, by its B1
+    launches), and B1 against its plain version on a 256-row slab and
+    timed against its bound; 26 the matrix-free solve at N=50,000
+    (``kernel_matvec`` against a float64 slab and timed, plain CG, the
+    pivoted-Cholesky split preconditioner, ``cg_refined`` with a float64
+    residual); 27 the CG fit at N=50,000 (5 float32 sweeps, the matvecs'
+    share), CG against lean at N=10,000 and the shell's
+    ``fit_method='cg'`` against the cached JAX value; 28
+    ``predict_iterative`` against the dense ``predict`` at N=5000 and
+    timed at 20,000, LOVE at 20,000, ``sample_iterative`` at 50,000, SVI
+    (the full-batch identity, the cached JAX subsets, 20 default steps).
+
 The launch counts are set to 0 before each path (phases 3–5, phases
-6–7, phases 11–12, phases 13–15, phases 17–20, phases 21–24) and read
-after it.  The
+6–7, phases 11–12, phases 13–15, phases 17–20, phases 21–24, phases
+25–28) and read after it.  The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -328,6 +348,58 @@ MULTISTART = {"n_restarts": 4, "n_steps": 5, "n_sweeps": 5}
 MULTISTART_NM = {"n_restarts": 4, "n_steps": 10, "n_sweeps": 5,
                  "method": "nm"}
 NPV = {"k": 2, "iterations": 20, "seed": 0}
+
+# the large-N stack (phases 25-28), run in a process of its own
+# (``chip_smoke.py --large``) so that its peaks are its own.  25(a): the
+# lean engines at N=2000 against the cached JAX values and the card's
+# dense engine; 25(b): one float64 sweep of the dense and the lean engine
+# from one state, headline and flagship, the reading LEAN_N is set from;
+# 25(c): the lean engines at BASELINE config 5's upper end (bench.py:
+# 413-442) and B1 there
+LARGE_ARG = "--large"
+MAGMA_ARG = "--magma-batched-solve"
+LEAN_CHECK_N = 2000
+LEAN_FIT32_SWEEPS = 3
+LEAN_COMPARE_NS = (5000, 10000)
+# the largest N at which torch's batched cholesky_solve (MAGMA) ran on an
+# H100 (batches of 3; it failed from 7000 on)
+MAGMA_BATCHED_SOLVE_MAX_N = 6000
+LEAN_WIDE_N = 20000
+LEAN_WIDE = {"fit32_sweeps": 3, "elbo_fit_iters": 3, "refine_sweeps": 2}
+SLAB_ROWS = 256
+# 26: the matrix-free solve of bench.py:446-518 (QP(1, 300, 200, 0.7), t
+# uniform on [0, 1000] from default_rng(1), float32)
+SOLVE_N = 50000
+SOLVE_PARS = (1.0, 300.0, 200.0, 0.7)
+SOLVE_NUGGET = 1e-2
+PLAIN_CG = {"tol": 1e-4, "maxiter": 200}
+PRE_CG = {"rank": 128, "tol": 2e-3, "maxiter": 60, "refresh_every": 4}
+REFINED = {"n_refine": 3, "tol": 1e-6, "inner_tol": 1e-3, "maxiter": 60}
+# 27: the CG fit (bench.py:524-554, :586-644): the headline model at
+# N=50,000, 5 float32 sweeps at cg_tol 1e-5; CG against lean, one float64
+# sweep each at N=10,000 (the JAX package's bar 1e-4); the shell's mixed
+# fit with fit_method='cg'
+CG_FIT_N = 50000
+CG_FIT = {"sweeps": 5, "cg_tol": 1e-5}
+CG_LEAN_N = 10000
+CG_LEAN_TOL = 1e-4
+CG_MIXED = {"N": 2000, "max_iter": 30, "refine_sweeps": "converge",
+            **CONVERGE}
+# 28: prediction checked from the heuristic starting state (from a state
+# 10 sweeps into the fit, the small posterior variances leave A = K +
+# diag(v) so ill-conditioned that the node GP's Jacobi-preconditioned CG
+# runs to its 2,000 iterations, which the phase also shows), its
+# variances one batched solve per GP; LOVE; prior samples; SVI (one
+# output of three per step, the default p // 4 at least 1) fed the cached
+# JAX subsets, the full-batch identity, and the default steps timed
+PREDICT_N = 5000
+PREDICT_WIDE_N = 20000
+PREDICT_RHS_CHUNK = 1000
+LOVE_RANK = 100
+SAMPLE_N = 50000
+SVI_N = 1000
+SVI_ORACLE = {"n_steps": 10, "seed": 0, "t0": 5.0, "kappa": 0.6}
+SVI_TIMED = {"N": 5000, "n_steps": 20}
 
 
 def batch_thetas(theta0, rows, spread, seed):
@@ -2161,6 +2233,675 @@ def phase_search(torch, pkg, oracle, ck):
     _check("search", checks)
 
 
+# ---- the large-N stack (phases 25-28, ``chip_smoke.py --large``) ----------
+
+# lean against dense on the card from one state: the same map, one GP at a
+# time against a batch (measured on an H100 at N=10,000: ELBO 6e-15, state
+# 4.5e-11)
+LEAN_DENSE_RTOL = 1e-10
+# the lean float64 sweep against the JAX package's on the CPU, as the fit
+# path's limits (phases 6-7)
+LEAN_JAX_RTOL = {"elbo": 1e-9, "state": 1e-7}
+# three float32 sweeps from one start: the card's lean engine against its
+# dense one and against the JAX package's float32 lean engine on the CPU.
+# The exact-nugget map is ill-conditioned at N=2000 and float32 rounding
+# of one build against another already moves mu by some 1e-3 (measured on
+# an H100: 3.3e-3 against the dense engine, 4.7e-3 against the JAX
+# package; var 6e-5 and 2e-5)
+LEAN_FIT32_TOL = 2e-2
+# B1 against its plain version on a slab of rows at N=20,000, as phase 8
+B1_SLAB_TOL = {"float64": (1e-12, 1e-14), "float32": (2e-6, 1e-6)}
+# kernel_matvec against the float64 dense slab: float32 sums of 50,000
+# terms (relative to max |y|), and float64
+MATVEC_SLAB_TOL = {"float32": 1e-4, "float64": 1e-12}
+# the shell's mixed fit with fit_method='cg' against the JAX package's,
+# both polished to the float64 fixed point: 30 float32 CG sweeps leave
+# each runtime mid-ascent at its own rounding (3 float64 sweeps after them
+# left the card 1.2e-3 from the JAX package on an H100), the converged
+# polish lands both on one fixed point (phase 11 measured 8.6e-13 at
+# N=1000)
+CG_MIXED_RTOL = 1e-9
+# predict_iterative against the dense predict at CG tol 1e-8, relative to
+# max |mean| and max |std| (measured on an H100: 6.6e-9 and 6.0e-9)
+PREDICT_TOL = 1e-6
+# LOVE's variances come from a projection of A⁻¹ onto a Krylov space,
+# which can only lower the variance reduction, and the combine formula is
+# increasing in every lattice variance: its std is never below the CG
+# solves' (up to their own error, relative to max |std|); its mean is the
+# same CG solve's
+# SVI: batch_p = p and κ = 0 is coordinate ascent: with the outputs drawn
+# in their own order, the lean engine's sweeps (the same update per GP,
+# summed in the same order; 0 on the CPU); with the default draws, whose
+# permutations sum the outputs in another order, the dense fit_state
+# within the JAX package's own bar (tests/test_svi.py:58-75); fed the JAX
+# subsets, the JAX package's run (float64 on both sides)
+SVI_EXACT_TOL = 1e-12
+SVI_PERMUTED_TOL = 1e-10
+SVI_JAX_TOL = 1e-9
+
+
+def _measured(torch, fn):
+    """(result, seconds, peak GiB above what was allocated before) of one
+    call on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, dt = _timed(torch, fn)
+    return out, dt, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def _start(torch, g, dtype):
+    """(theta, t, y, yerr2, mu0, var0) of ``g`` in ``dtype``, from the
+    heuristic start."""
+    theta = g._theta().to(dtype)
+    t, y, yerr2 = (x.to(dtype) for x in g._data())
+    mu0, var0 = g.engine.init_mu_var(theta, y)
+    return theta, t, y, yerr2, mu0, var0
+
+
+def _all_finite(torch, *xs):
+    return all(bool(torch.isfinite(torch.as_tensor(x)).all()) for x in xs)
+
+
+def phase_lean_check(torch, pkg, oracle, ck):
+    """25(a): one lean float64 sweep and three float32 ones at N=2000,
+    against the cached JAX values and the card's dense engine."""
+    ref = oracle["lean"]
+    g = headline_problem(pkg, N=LEAN_CHECK_N, device="cuda")
+    eng = g.engine
+    a64 = _start(torch, g, torch.float64)
+    before = ck.LAUNCHES["kernel_matrix"]
+    (e, mu, var), wall = _timed(torch, lambda: eng.elbo_refine_lean(*a64, 1))
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    e_d, mu_d, var_d = eng.elbo_refine(*a64, 1)
+    a32 = _start(torch, g, torch.float32)
+    (mu32, var32, it32, _), wall32 = _timed(
+        torch, lambda: eng.fit_state_lean(*a32, LEAN_FIT32_SWEEPS, 0.0))
+    mu32_d, var32_d, _, _ = eng.fit_state(*a32, LEAN_FIT32_SWEEPS, 0.0)
+    summary = state_summary(mu.cpu().numpy(), var.cpu().numpy(),
+                            ref["stride"])
+    summary32 = state_summary(mu32.double().cpu().numpy(),
+                              var32.double().cpu().numpy(), ref["stride"])
+    print(f"lean N={LEAN_CHECK_N}: elbo_refine_lean(1) {float(e)!r} in "
+          f"{wall:.3f} s (the first B1 launch of this process included), "
+          f"dense {float(e_d)!r}, jax {ref['refine']['elbo']!r}; "
+          f"fit_state_lean float32 {it32} sweeps {wall32:.3f} s", flush=True)
+    checks = [("B1 launches (one per GP)", launched == 4, f"{launched}"),
+              ("ELBO lean vs jax",
+               _rel(float(e), ref["refine"]["elbo"]) <= LEAN_JAX_RTOL["elbo"],
+               f"rel {_rel(float(e), ref['refine']['elbo']):.3e}"),
+              ("ELBO lean vs dense", _rel(float(e), float(e_d))
+               <= LEAN_DENSE_RTOL, f"rel {_rel(float(e), float(e_d)):.3e}")]
+    for key, got, dense in (("mu", mu, mu_d), ("var", var, var_d)):
+        err = _rel_state_err(summary[key], ref["refine"][key])
+        checks.append((f"{key} lean vs jax", err <= LEAN_JAX_RTOL["state"],
+                       f"{err:.3e}"))
+        err = _rel_state_err(got.cpu().numpy(), dense.cpu().numpy())
+        checks.append((f"{key} lean vs dense", err <= LEAN_DENSE_RTOL,
+                       f"{err:.3e}"))
+    for key, got, dense in (("mu", mu32, mu32_d), ("var", var32, var32_d)):
+        err = _rel_state_err(summary32[key], ref["fit_state32"][key])
+        checks.append((f"float32 {key} lean vs jax", err <= LEAN_FIT32_TOL,
+                       f"{err:.3e}"))
+        err = _rel_state_err(got.double().cpu().numpy(),
+                             dense.double().cpu().numpy())
+        checks.append((f"float32 {key} lean vs dense",
+                       err <= LEAN_FIT32_TOL, f"{err:.3e}"))
+    _check("lean, N=2000", checks)
+
+
+def _dense_reckoning(torch, spec, N):
+    """The bytes of the dense engine's lattice (one N×N float64 matrix per
+    GP) and the card's free memory, printed before the dense call."""
+    n_gp = spec.q * (spec.p + 1)
+    lattice = n_gp * N * N * 8
+    free, total = torch.cuda.mem_get_info()
+    print(f"dense N={N}: the lattice of {n_gp} kernel matrices is "
+          f"{lattice / 2 ** 30:.2f} GiB (float64); the card has "
+          f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free", flush=True)
+    return lattice, free
+
+
+def phase_lean_vs_dense(torch, pkg, ck):
+    """25(b): one float64 sweep of the dense and of the lean engine from
+    one state, s/sweep (the faster of two calls) and peak, headline and
+    flagship; returns the rows."""
+    from gpyrn_tpu_torch.models import gprn
+    rows = []
+    for name in ("headline", "flagship"):
+        for N in LEAN_COMPARE_NS:
+            g = PROBLEMS[name](pkg, N=N, device="cuda")
+            eng = g.engine
+            a = _start(torch, g, torch.float64)
+            _dense_reckoning(torch, eng.spec, N)
+            row = {"model": name, "N": N}
+            out = {}
+            for which, fn in (
+                    ("dense", lambda: eng.elbo_refine(*a, 1)),
+                    ("lean", lambda: eng.elbo_refine_lean(*a, 1)),
+                    ("dense_updates", lambda: eng.fit_state(*a, 1, 0.0)),
+                    ("lean_updates", lambda: eng.fit_state_lean(*a, 1,
+                                                                0.0))):
+                runs = [_measured(torch, fn) for _ in range(2)]
+                out[which] = runs[0][0]
+                row[which] = {"s_per_sweep": min(r[1] for r in runs),
+                              "walls": [r[1] for r in runs],
+                              "peak_gib": max(r[2] for r in runs)}
+            saved = gprn.BATCHED_SOLVE_MAX_N
+            if saved < N <= MAGMA_BATCHED_SOLVE_MAX_N:
+                # the dense sweep again with MAGMA's batched solves, beside
+                # the one-matrix-at-a-time solves the engine takes above
+                # BATCHED_SOLVE_MAX_N
+                gprn.BATCHED_SOLVE_MAX_N = N
+                try:
+                    runs = [_measured(torch, lambda: eng.elbo_refine(*a, 1))
+                            for _ in range(2)]
+                finally:
+                    gprn.BATCHED_SOLVE_MAX_N = saved
+                row["dense_batched_solves"] = {
+                    "s_per_sweep": min(r[1] for r in runs),
+                    "walls": [r[1] for r in runs]}
+            e_rel = _rel(float(out["lean"][0]), float(out["dense"][0]))
+            s_err = _rel_state_err(out["lean"][1].cpu().numpy(),
+                                   out["dense"][1].cpu().numpy())
+            row["ratio"] = row["lean"]["s_per_sweep"] / \
+                row["dense"]["s_per_sweep"]
+            print(f"lean vs dense {json.dumps(row)}; ELBO rel {e_rel:.3e}, "
+                  f"state {s_err:.3e}", flush=True)
+            _check(f"lean vs dense, {name} N={N}", [
+                ("same ELBO", e_rel <= LEAN_DENSE_RTOL, f"rel {e_rel:.3e}"),
+                ("same state", s_err <= LEAN_DENSE_RTOL, f"{s_err:.3e}")])
+            rows.append(row)
+            del g, eng, a, out
+    # torch's batched cholesky_solve (MAGMA) at the sizes around
+    # MAGMA_BATCHED_SOLVE_MAX_N, each in a process of its own (a failed
+    # launch can leave the context unusable): a reading of the library,
+    # the reason for BATCHED_SOLVE_MAX_N
+    magma = {}
+    for N in (MAGMA_BATCHED_SOLVE_MAX_N, MAGMA_BATCHED_SOLVE_MAX_N + 1000):
+        child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                MAGMA_ARG, str(N)], capture_output=True,
+                               text=True)
+        magma[N] = "ran" if child.returncode == 0 else \
+            f"failed (exit {child.returncode}: " \
+            f"{(child.stderr.strip().splitlines() or [''])[-1][:80]})"
+    print(f"torch.cholesky_solve on a batch of 3 (MAGMA): {magma}",
+          flush=True)
+    return rows, magma
+
+
+def magma_batched_solve(torch, N):
+    """One batched ``torch.cholesky_solve`` of 3 identity factors at N on
+    the card (a child process of phase 25(b))."""
+    L = torch.eye(N, dtype=torch.float64, device="cuda").expand(
+        3, N, N).contiguous()
+    b = torch.ones((3, N, 1), dtype=torch.float64, device="cuda")
+    x = torch.cholesky_solve(b, L)
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 3 * N
+
+
+def phase_lean_wide(torch, pkg, ck, lin, state):
+    """25(c): the lean engines at N=20,000, then ``ELBOcalc`` there; B1
+    against its plain version on a slab and its device time (uncounted).
+    Leaves the float64 starting state in ``state``."""
+    from gpyrn_tpu_torch.inference import meanfield
+    N, n_k = LEAN_WIDE_N, 4
+    g = headline_problem(pkg, N=N, device="cuda")
+    eng = g.engine
+    a32 = _start(torch, g, torch.float32)
+    a64 = _start(torch, g, torch.float64)
+    results, checks = {}, []
+    for label, fn, builds in (
+            ("fit_state_lean float32", lambda: eng.fit_state_lean(
+                *a32, LEAN_WIDE["fit32_sweeps"], 0.0),
+             LEAN_WIDE["fit32_sweeps"]),
+            ("elbo_fit_lean float64", lambda: eng.elbo_fit_lean(
+                *a64, LEAN_WIDE["elbo_fit_iters"]),
+             LEAN_WIDE["elbo_fit_iters"]),
+            ("elbo_refine_lean float64", lambda: eng.elbo_refine_lean(
+                *a64, LEAN_WIDE["refine_sweeps"]),
+             LEAN_WIDE["refine_sweeps"])):
+        before = ck.LAUNCHES["kernel_matrix"]
+        out, wall, peak = _measured(torch, fn)
+        launched = ck.LAUNCHES["kernel_matrix"] - before
+        finite = _all_finite(torch, *[x for x in out
+                                      if isinstance(x, torch.Tensor)])
+        results[label] = {"s_per_sweep": wall / builds, "wall": wall,
+                          "peak_gib": peak, "launches": launched}
+        print(f"N={N} {label}: {wall:.3f} s ({wall / builds:.3f} s per "
+              f"sweep), peak {peak:.3f} GiB, B1 launches {launched}",
+              flush=True)
+        checks += [(f"{label} finite", finite, ""),
+                   (f"{label} B1 launches", launched == n_k * builds,
+                    f"{launched} vs {n_k} x {builds}")]
+        del out
+    before = ck.LAUNCHES["kernel_matrix"]
+    (elbo, _, _, n_iter), wall = _timed(
+        torch, lambda: g.ELBOcalc(max_iter=LEAN_WIDE["elbo_fit_iters"]))
+    launched = ck.LAUNCHES["kernel_matrix"] - before
+    print(f"N={N} ELBOcalc(max_iter={LEAN_WIDE['elbo_fit_iters']}): "
+          f"{elbo!r} in {wall:.3f} s, B1 launches {launched} (LEAN_N "
+          f"{meanfield.LEAN_N})", flush=True)
+    checks += [("ELBOcalc takes the lean route (one build per GP and "
+                "sweep)", launched == n_k * n_iter and N >= meanfield.LEAN_N,
+                f"{launched} vs {n_k} x {n_iter}"),
+               ("ELBOcalc finite", np.isfinite(elbo), "")]
+    _check(f"lean, N={N}", checks)
+    state["wide"] = (g, a64)
+    # B1 against its plain version and timed: launches of the comparison,
+    # not of the path, so the counts are put back afterwards
+    saved = dict(ck.LAUNCHES)
+    results["b1"] = b1_wide(torch, ck, lin, a64[1])
+    ck.LAUNCHES.update(saved)
+    return results
+
+
+def b1_wide(torch, ck, lin, t64):
+    """B1 at N=20,000 (the headline node, QP): a slab of rows against the
+    plain formula, then its device time in float64 and float32 against
+    its bytes bound and the plain version's time on the slab."""
+    from gpyrn_tpu_torch.ops import kernels
+    g_pars = (1.0, 30.0, 20.0, 0.7)
+    out = {}
+    N = t64.shape[0]
+    rows = torch.arange(0, N, N // SLAB_ROWS, device="cuda")[:SLAB_ROWS]
+    for dtype in (torch.float64, torch.float32):
+        t = t64.to(dtype)
+        params = torch.tensor(g_pars, dtype=dtype, device="cuda")
+        K = lin.kernel_matrix(("QP",), params, t)
+        jitter = ck._jitter(("QP",), params, t, lin.TRAIN_NUGGET,
+                            lin.F32_JITTER_MULT)
+        slab = kernels.evaluate(("QP",), params,
+                                r=t[rows][:, None] - t[None, :])
+        slab[torch.arange(rows.shape[0], device="cuda"), rows] += jitter
+        err = float((K[rows] - slab).abs().max())
+        rtol, atol = B1_SLAB_TOL[_dtype_name(dtype)]
+        ok = bool(((K[rows] - slab).abs() <= atol + rtol * slab.abs()).all())
+        del K
+        ms = _device_ms(torch, lambda: lin.kernel_matrix(("QP",), params, t),
+                        3, "kernel_matrix_kernel")
+        plain_slab_ms = _device_ms(torch, lambda: kernels.evaluate(
+            ("QP",), params, r=t[rows][:, None] - t[None, :]), 3)
+        item = t.element_size()
+        bound_ms, bound_by = _bound(
+            item * (N + 5 + N * N),
+            OPS_PER_LAG["kernel_matrix"] * N * (N + 1) // 2, dtype)
+        out[_dtype_name(dtype)] = {
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "slab_max_abs_err": err,
+            "plain_ms_per_256_rows": plain_slab_ms,
+            "plain_ms_reckoned_from_slab": plain_slab_ms * N / SLAB_ROWS}
+        print(f"B1 QP N={N} {_dtype_name(dtype)}: {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), at {bound_ms / ms:.3f} of "
+              f"it; slab of {SLAB_ROWS} rows vs plain max abs err "
+              f"{err:.3e}; plain formula {plain_slab_ms:.4f} ms per slab",
+              flush=True)
+        _check(f"B1 N={N} {_dtype_name(dtype)}", [
+            ("slab vs plain", ok, f"max abs err {err:.3e} (rtol {rtol}, "
+             f"atol {atol})")])
+    return out
+
+
+def _solve_problem(torch, dtype):
+    rng = np.random.default_rng(1)
+    t = torch.tensor(np.sort(rng.uniform(0, 1000, SOLVE_N)), dtype=dtype,
+                     device="cuda")
+    b = torch.tensor(rng.standard_normal(SOLVE_N), dtype=dtype,
+                     device="cuda")
+    return t, torch.tensor(SOLVE_PARS, dtype=dtype, device="cuda"), b
+
+
+def phase_solve(torch, pkg, ck):
+    """26: the matrix-free solve at N=50,000 (no B1 on this path)."""
+    from gpyrn_tpu_torch.ops import iterative as it
+    from gpyrn_tpu_torch.ops import kernels
+    t, pars, b = _solve_problem(torch, torch.float32)
+    t64, pars64, b64 = (x.double() for x in (t, pars, b))
+    s, nug = ("QP",), SOLVE_NUGGET
+    out, checks = {}, []
+    # kernel_matvec against a float64 dense slab of K
+    rows = torch.arange(0, SOLVE_N, SOLVE_N // SLAB_ROWS,
+                        device="cuda")[:SLAB_ROWS]
+    slab = kernels.evaluate(s, pars64, r=t64[rows][:, None] - t64[None, :])
+    y_ref = slab @ b64 + nug * b64[rows]
+    for dtype, tt, pp, bb in ((torch.float32, t, pars, b),
+                              (torch.float64, t64, pars64, b64)):
+        y = it.kernel_matvec(s, pp, tt, bb, nugget=nug)
+        err = float((y[rows].double() - y_ref).abs().max()
+                    / y_ref.abs().max())
+        tol = MATVEC_SLAB_TOL[_dtype_name(dtype)]
+        checks.append((f"kernel_matvec {_dtype_name(dtype)} vs float64 "
+                       f"slab", err <= tol, f"rel {err:.3e} (limit {tol})"))
+    matvec_ms = {_dtype_name(dt): _device_ms(
+        torch, lambda: it.kernel_matvec(s, pp, tt, bb, nugget=nug), 3)
+        for dt, tt, pp, bb in ((torch.float32, t, pars, b),
+                               (torch.float64, t64, pars64, b64))}
+    out["matvec_ms"] = matvec_ms
+    # the row chunk trades memory for speed with the same results
+    out["matvec_ms_by_chunk"] = {chunk: _device_ms(
+        torch, lambda chunk=chunk: it.kernel_matvec(s, pars, t, b, nugget=nug,
+                                                    chunk=chunk), 3)
+        for chunk in (1024, 2048, 4096)}
+    print(f"kernel_matvec N={SOLVE_N} float32 by row chunk: "
+          f"{out['matvec_ms_by_chunk']} ms", flush=True)
+    # its bound: N² kernel evaluations and a multiply-add each; bytes of
+    # t, v and y
+    n_ops = (OPS_PER_LAG["kernel_matrix"] + 2) * SOLVE_N * SOLVE_N
+    out["matvec_bound"] = {
+        _dtype_name(dt): _bound(3 * SOLVE_N * e, n_ops, dt)
+        for dt, e in ((torch.float32, 4), (torch.float64, 8))}
+    print(f"kernel_matvec N={SOLVE_N}: {matvec_ms} ms per call, bound "
+          f"{out['matvec_bound']}", flush=True)
+
+    def mv(x):
+        return it.kernel_matvec(s, pars, t, x, nugget=nug)
+
+    (x, n_plain), wall = _timed(torch, lambda: it.cg_solve(mv, b,
+                                                           **PLAIN_CG))
+    out["plain"] = {"iters": n_plain, "wall": wall}
+    print(f"plain CG {PLAIN_CG}: {n_plain} iterations, {wall:.3f} s, "
+          f"matvec share {n_plain * matvec_ms['float32'] / 1e3 / wall:.3f}",
+          flush=True)
+
+    def pre_solve():
+        U, _ = it.pivoted_cholesky(s, pars, t, PRE_CG["rank"], nugget=0.0)
+        pre = it.split_precond(U, torch.full_like(t, nug))
+        return it.cg_solve(mv, b, tol=PRE_CG["tol"],
+                           maxiter=PRE_CG["maxiter"], precond_apply=pre,
+                           refresh_every=PRE_CG["refresh_every"],
+                           return_relres=True), pre
+
+    ((x, n_pre, relres), pre), wall = _timed(torch, pre_solve)
+    relres = float(relres)
+    out["pre"] = {"iters": n_pre, "wall": wall, "relres": relres,
+                  "met_tol": relres <= PRE_CG["tol"]}
+    print(f"pivoted-Cholesky rank {PRE_CG['rank']} + split preconditioner "
+          f"CG: {n_pre} iterations, {wall:.3f} s, true relres {relres:.3e} "
+          f"(requested {PRE_CG['tol']}, met: {relres <= PRE_CG['tol']})",
+          flush=True)
+
+    def res64(x):
+        return it.kernel_matvec(s, pars64, t64, x, nugget=nug)
+
+    (xr, rel_ref), wall = _timed(torch, lambda: it.cg_refined(
+        mv, res64, b64, precond_apply=pre, **REFINED))
+    out["refined"] = {"relres": rel_ref, "wall": wall}
+    print(f"cg_refined {REFINED} with the float64 kernel_matvec residual: "
+          f"relres {rel_ref:.3e}, {wall:.3f} s", flush=True)
+    checks += [("plain CG finite", _all_finite(torch, x), ""),
+               ("preconditioned CG finite, relres finite",
+                np.isfinite(relres), f"{relres:.3e}"),
+               ("cg_refined below the float32 solve's relres",
+                rel_ref < relres, f"{rel_ref:.3e} vs {relres:.3e}")]
+    _check(f"solve, N={SOLVE_N}", checks)
+    return out
+
+
+def phase_cg_fit(torch, pkg, oracle, ck):
+    """27: the CG fit at N=50,000, CG against lean at N=10,000, and the
+    shell's fit_method='cg' against the cached JAX value."""
+    from gpyrn_tpu_torch.models import cg_fit
+    from gpyrn_tpu_torch.ops import iterative as it
+    out, checks = {}, []
+    g = headline_problem(pkg, N=CG_FIT_N, device="cuda")
+    g.cg_tol = CG_FIT["cg_tol"]
+    a32 = _start(torch, g, torch.float32)
+    solves, matvecs = [], {}
+    orig_solve, orig_matvec = cg_fit.cg_solve, cg_fit.kernel_matvec
+
+    def counting_solve(*args, **kw):
+        res = orig_solve(*args, **kw)
+        solves.append(res[1])
+        return res
+
+    def counting_matvec(structure, *args, **kw):
+        matvecs[structure] = matvecs.get(structure, 0) + 1
+        return orig_matvec(structure, *args, **kw)
+
+    cg_fit.cg_solve, cg_fit.kernel_matvec = counting_solve, counting_matvec
+    try:
+        (mu, var, n, _, rres), wall, peak = _measured(
+            torch, lambda: g.cg_engine.fit_state_cg(*a32, CG_FIT["sweeps"],
+                                                    1e-12))
+    finally:
+        cg_fit.cg_solve, cg_fit.kernel_matvec = orig_solve, orig_matvec
+    rres = float(rres)
+    # the matvecs' share of the fit: each structure's device ms per call
+    # (one right-hand side, this fit's parameters) times its calls
+    theta, t32 = a32[0], a32[1]
+    cores = dict(zip(g.engine.spec.node_structs + g.engine.spec.weight_structs,
+                     g.engine._lean_cores(theta)[0]
+                     + g.engine._lean_cores(theta)[1]))
+    mv_ms = {s: _device_ms(torch, lambda s=s: it.kernel_matvec(
+        s, cores[s], t32, t32[:, None], nugget=1e-6), 3) for s in matvecs}
+    share = sum(matvecs[s] * mv_ms[s] for s in matvecs) / 1e3 / wall
+    out["fit"] = {"s_per_sweep": wall / n, "wall": wall, "relres": rres,
+                  "peak_gib": peak, "cg_iters": solves,
+                  "matvecs": {str(s): c for s, c in matvecs.items()},
+                  "matvec_ms": {str(s): ms for s, ms in mv_ms.items()},
+                  "matvec_share": share}
+    print(f"CG fit N={CG_FIT_N}: {n} float32 sweeps, {wall:.3f} s "
+          f"({wall / n:.3f} s per sweep), achieved relres {rres:.3e} "
+          f"(cg_tol {CG_FIT['cg_tol']}), peak {peak:.3f} GiB, CG iterations "
+          f"per solve {solves}; kernel_matvec calls {matvecs} at "
+          f"{mv_ms} ms: {share:.3f} of the fit", flush=True)
+    checks.append(("CG fit finite", _all_finite(torch, mu, var)
+                   and np.isfinite(rres), f"{n} sweeps"))
+    del g, a32, mu, var
+
+    g = headline_problem(pkg, N=CG_LEAN_N, device="cuda")
+    a64 = _start(torch, g, torch.float64)
+    mu_l, var_l, _, _ = g.engine.fit_state_lean(*a64, 1, 0.0)
+    (mu_c, var_c, _, _, rres_c), wall = _timed(
+        torch, lambda: g.cg_engine.fit_state_cg(*a64, 1, 0.0))
+    mu_rel = float((mu_c - mu_l).abs().max() / (1 + mu_l.abs().max()))
+    var_rel = float((var_c - var_l).abs().max() / var_l.abs().max())
+    out["vs_lean"] = {"mu_rel": mu_rel, "var_rel": var_rel, "wall": wall}
+    print(f"CG vs lean N={CG_LEAN_N}, one float64 sweep: mu_rel "
+          f"{mu_rel:.3e}, var_rel {var_rel:.3e} (CG sweep {wall:.3f} s, "
+          f"relres {float(rres_c):.3e})", flush=True)
+    checks += [("CG vs lean mu_rel", mu_rel <= CG_LEAN_TOL, f"{mu_rel:.3e}"),
+               ("CG vs lean var_rel", var_rel <= CG_LEAN_TOL,
+                f"{var_rel:.3e}")]
+    del g, a64
+
+    ref = oracle["lean"]["cg_mixed"]
+    g = headline_problem(pkg, N=CG_MIXED["N"], device="cuda")
+    g.fit_method = 'cg'
+    for key in ("refine_sweeps", *CONVERGE):
+        setattr(g, key, CG_MIXED[key])
+    (elbo, _, _, n_iter), wall = _timed(torch, lambda: g.ELBOcalc(
+        precision='mixed', max_iter=CG_MIXED["max_iter"]))
+    print(f"ELBOcalc(precision='mixed', fit_method='cg') N={CG_MIXED['N']}: "
+          f"{elbo!r} in {n_iter} sweeps, {wall:.3f} s, cg_achieved_relres "
+          f"{g.cg_achieved_relres:.3e}; jax {ref['elbo']!r} in "
+          f"{ref['n_iter']}, relres {ref['cg_achieved_relres']:.3e}",
+          flush=True)
+    checks += [("shell CG ELBO vs jax",
+                _rel(elbo, ref["elbo"]) <= CG_MIXED_RTOL,
+                f"rel {_rel(elbo, ref['elbo']):.3e} (limit {CG_MIXED_RTOL})"),
+               ("cg_achieved_relres set", g.mixed_info["bulk"] == "cg" and
+                np.isfinite(g.cg_achieved_relres), "")]
+    out["shell"] = {"elbo": elbo, "wall": wall,
+                    "relres": g.cg_achieved_relres}
+    _check("CG fit", checks)
+    return out
+
+
+def phase_predict(torch, pkg, oracle, ck, state):
+    """28: predict_iterative against the dense predict at N=5000 and
+    timed at N=20,000, LOVE at N=20,000, prior samples at N=50,000, SVI."""
+    from gpyrn_tpu_torch.models import iterative as tit
+    from gpyrn_tpu_torch.models import svi
+    out, checks = {}, []
+    g = headline_problem(pkg, N=PREDICT_N, device="cuda")
+    a64 = _start(torch, g, torch.float64)
+    g._mu, g._var = a64[4:]
+    iters, orig = [], tit.cg_solve
+
+    def counting(*args, **kw):
+        res = orig(*args, **kw)
+        iters.append(res[1])
+        return res
+
+    tit.cg_solve = counting
+    try:
+        (ts, mean, std, _), wall = _timed(
+            torch, lambda: tit.predict_iterative(
+                g, nn=1000, rhs_chunk=PREDICT_RHS_CHUNK))
+        heuristic_iters = list(iters)
+        # the same means from a state 10 sweeps into the fit: its small
+        # posterior variances condition A = K + diag(v) far worse
+        g._mu, g._var = g.engine.fit_state(*a64, 10, 0.0)[:2]
+        iters.clear()
+        _, fit_wall = _timed(torch, lambda: tit.predict_iterative(
+            g, nn=1000, variances=False))
+        fitted_iters = list(iters)
+    finally:
+        tit.cg_solve = orig
+    print(f"predict_iterative N={PREDICT_N}: CG iterations per solve from "
+          f"the heuristic state {heuristic_iters}; the means alone from a "
+          f"10-sweep state {fitted_iters} ({fit_wall:.3f} s)", flush=True)
+    out["predict_5k_iters"] = {"heuristic": heuristic_iters,
+                               "fitted_means": fitted_iters}
+    g._mu, g._var = a64[4:]
+    _, mean_d, std_d, _ = g.predict(nn=1000)
+    e_mean = float((mean - mean_d).abs().max() / mean_d.abs().max())
+    e_std = float((std - std_d).abs().max() / std_d.abs().max())
+    print(f"predict_iterative N={PREDICT_N} nn=1000: {wall:.3f} s; against "
+          f"the dense predict: mean {e_mean:.3e}, std {e_std:.3e}",
+          flush=True)
+    checks += [("predict_iterative mean vs dense", e_mean <= PREDICT_TOL,
+                f"{e_mean:.3e}"),
+               ("predict_iterative std vs dense", e_std <= PREDICT_TOL,
+                f"{e_std:.3e}")]
+    out["predict_5k"] = {"wall": wall, "mean_err": e_mean, "std_err": e_std}
+    del g
+
+    g, a64 = state.pop("wide")
+    g._mu, g._var = a64[4], a64[5]
+    (ts, mean, std, _), wall, peak = _measured(
+        torch, lambda: tit.predict_iterative(g, nn=1000,
+                                             rhs_chunk=PREDICT_RHS_CHUNK))
+    out["predict_20k"] = {"wall": wall, "peak_gib": peak}
+    print(f"predict_iterative N={LEAN_WIDE_N} nn=1000 rhs_chunk="
+          f"{PREDICT_RHS_CHUNK}: {wall:.3f} s, peak {peak:.3f} GiB",
+          flush=True)
+    checks.append(("predict_iterative N=20,000 finite",
+                   _all_finite(torch, mean, std), ""))
+    love, wall_b = _timed(torch, lambda: tit.build_love(g, rank=LOVE_RANK))
+    (_, mean_l, std_l, _), wall_p = _timed(torch, lambda: love.predict(
+        nn=1000))
+    e_mean = float((mean_l - mean).abs().max() / mean.abs().max())
+    below = float((std - std_l).max() / std.abs().max())
+    e_std = float((std_l - std).abs().max() / std.abs().max())
+    out["love_20k"] = {"build": wall_b, "predict": wall_p,
+                       "mean_err": e_mean, "std_err": e_std}
+    print(f"LOVE N={LEAN_WIDE_N} rank {LOVE_RANK}: build {wall_b:.3f} s, "
+          f"predict(nn=1000) {wall_p:.4f} s; against predict_iterative: "
+          f"mean {e_mean:.3e}, std {e_std:.3e} (largest shortfall "
+          f"{below:.3e})", flush=True)
+    checks += [("LOVE mean vs predict_iterative", e_mean <= PREDICT_TOL,
+                f"{e_mean:.3e}"),
+               ("LOVE std not below predict_iterative's", below <=
+                PREDICT_TOL, f"{below:.3e}"),
+               ("LOVE finite", _all_finite(torch, mean_l, std_l), "")]
+    del g, a64, love
+
+    g = headline_problem(pkg, N=SAMPLE_N, device="cuda")
+    (nodes, weights), wall = _timed(torch, lambda: tit.sample_iterative(
+        g, rng=np.random.default_rng(0)))
+    out["sample_50k"] = {"wall": wall}
+    print(f"sample_iterative N={SAMPLE_N}: {wall:.3f} s, shapes "
+          f"{nodes.shape} {weights.shape}", flush=True)
+    checks.append(("samples finite", bool(np.isfinite(nodes).all() and
+                                          np.isfinite(weights).all()),
+                   f"{nodes.shape}, {weights.shape}"))
+    del g
+
+    g = headline_problem(pkg, N=SVI_N, device="cuda")
+    a64 = _start(torch, g, torch.float64)
+    spec = g.engine.spec
+    full = svi.make_svi_fit(spec, spec.p)
+
+    def full_err(draws, fit):
+        mu_s, var_s = full.fit_state_svi(*a64, 4, 0, 5.0, 0.0, draws=draws)
+        mu_f, var_f, _, _ = fit(*a64, 4, 0.0)
+        return max(_rel_state_err(mu_s.cpu().numpy(), mu_f.cpu().numpy()),
+                   _rel_state_err(var_s.cpu().numpy(), var_f.cpu().numpy()))
+
+    e_full = full_err(np.tile(np.arange(spec.p), (4, 1)),
+                      g.engine.fit_state_lean)
+    e_perm = full_err(None, g.engine.fit_state)
+    ref = oracle["lean"]["svi"]
+    sv = svi.make_svi_fit(spec, ref["batch_p"])
+    mu_j, var_j = sv.fit_state_svi(*a64, SVI_ORACLE["n_steps"],
+                                   SVI_ORACLE["seed"], SVI_ORACLE["t0"],
+                                   SVI_ORACLE["kappa"],
+                                   draws=np.array(ref["subsets"]))
+    summary = state_summary(mu_j.cpu().numpy(), var_j.cpu().numpy(),
+                            ref["stride"])
+    e_jax = max(_rel_state_err(summary["mu"], ref["mu"]),
+                _rel_state_err(summary["var"], ref["var"]))
+    print(f"SVI N={SVI_N}: batch_p = p, kappa 0: outputs in order against "
+          f"fit_state_lean {e_full:.3e}, default draws against fit_state "
+          f"{e_perm:.3e}; fed the JAX subsets against jax {e_jax:.3e}",
+          flush=True)
+    checks += [("SVI full batch is coordinate ascent (lean)",
+                e_full <= SVI_EXACT_TOL, f"{e_full:.3e}"),
+               ("SVI full batch, default draws, vs fit_state",
+                e_perm <= SVI_PERMUTED_TOL, f"{e_perm:.3e}"),
+               ("SVI on the JAX subsets vs jax", e_jax <= SVI_JAX_TOL,
+                f"{e_jax:.3e}")]
+    g = headline_problem(pkg, N=SVI_TIMED["N"], device="cuda")
+    a32 = _start(torch, g, torch.float32)
+    sv = svi.make_svi_fit(g.engine.spec, max(1, g.p // 4))
+    (mu_t, _), wall = _timed(torch, lambda: sv.fit_state_svi(
+        *a32, SVI_TIMED["n_steps"], 0, 5.0, 0.6))
+    out["svi"] = {"steps_per_s": SVI_TIMED["n_steps"] / wall,
+                  "full_batch_err": e_full, "permuted_err": e_perm,
+                  "jax_err": e_jax}
+    print(f"SVI N={SVI_TIMED['N']}: {SVI_TIMED['n_steps']} default steps in "
+          f"{wall:.3f} s, {SVI_TIMED['n_steps'] / wall:.2f} steps per "
+          f"second", flush=True)
+    checks.append(("SVI steps finite", _all_finite(torch, mu_t), ""))
+    _check("prediction and SVI", checks)
+    return out
+
+
+def large_main(torch, pkg, ck, lin):
+    """Phases 25-28 in this process: the launch counts are set to 0 before
+    the path and read after it (comparison launches leave them); the last
+    line is the JSON record the parent reads."""
+    with open(ORACLE) as f:
+        oracle = json.load(f)
+    state = {}
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    print("== phase 25(a): lean engines, headline model, N=2000", flush=True)
+    phase_lean_check(torch, pkg, oracle, ck)
+    print("== phase 25(b): dense against lean, one float64 sweep", flush=True)
+    rows, magma = phase_lean_vs_dense(torch, pkg, ck)
+    print(f"== phase 25(c): lean engines at N={LEAN_WIDE_N}", flush=True)
+    wide = phase_lean_wide(torch, pkg, ck, lin, state)
+    print(f"== phase 26: the matrix-free solve at N={SOLVE_N}", flush=True)
+    solve = phase_solve(torch, pkg, ck)
+    print("== phase 27: the CG fit", flush=True)
+    cg = phase_cg_fit(torch, pkg, oracle, ck)
+    print("== phase 28: prediction, samples and SVI", flush=True)
+    pred = phase_predict(torch, pkg, oracle, ck, state)
+    launches = dict(ck.LAUNCHES)
+    wall = time.perf_counter() - t0
+    print(f"large path launches: {launches}; phases 25-28 took "
+          f"{wall:.1f} s", flush=True)
+    print(json.dumps({"launches": launches, "lean_vs_dense": rows,
+                      "magma_batched_solve": magma,
+                      "wide": wide, "solve": solve, "cg": cg,
+                      "predict": pred, "seconds": wall}), flush=True)
+
+
 def _child(arg):
     """The output lines of this script run with ``arg`` in a fresh
     process; its failure fails the run."""
@@ -2169,7 +2910,7 @@ def _child(arg):
     sys.stderr.write(child.stderr)
     if child.returncode != 0:
         sys.stdout.write(child.stdout)
-        raise AssertionError(f"the profiling process ({arg}) failed with "
+        raise AssertionError(f"the child process ({arg}) failed with "
                              f"exit code {child.returncode}")
     return child.stdout.strip().splitlines()
 
@@ -2189,6 +2930,12 @@ def main():
         return
     if sys.argv[1:] == [PROFILE_BATCH_ARG]:
         trace_batched_sweep(torch, pkg)
+        return
+    if sys.argv[1:] == [LARGE_ARG]:
+        large_main(torch, pkg, ck, lin)
+        return
+    if sys.argv[1:2] == [MAGMA_ARG]:
+        magma_batched_solve(torch, int(sys.argv[2]))
         return
 
     print("== phase 1: environment", flush=True)
@@ -2315,6 +3062,18 @@ def main():
         raise AssertionError("the sampler path never launched one of its "
                              f"kernels: {sampler_launches}")
 
+    # the large-N stack: the lean engines, the matrix-free solve, the CG
+    # fit, prediction and SVI, in a process of its own
+    print("== phases 25-28: the large-N stack, in a fresh process",
+          flush=True)
+    lines = _child(LARGE_ARG)
+    print("\n".join(lines[:-1]), flush=True)
+    large = json.loads(lines[-1])
+    large_launches = large["launches"]
+    if large_launches["kernel_matrix"] == 0:
+        raise AssertionError("the large-N path never launched "
+                             "kernel_matrix")
+
     kernels = []
     for kname, rec in (("kernel_matrix", record),
                        ("kernel_matrix_grad", grad_record)):
@@ -2322,13 +3081,15 @@ def main():
                    "mixed": mixed_launches[kname],
                    "implicit": implicit_launches[kname],
                    "batch": batch_launches[kname],
-                   "sampler": sampler_launches[kname]}
+                   "sampler": sampler_launches[kname],
+                   "large": large_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",
             "replaces": "gpyrn_tpu/ops/pallas_kernels.py:122",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **rec})
+    kernels[0]["n20000"] = large["wide"]["b1"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,11 @@
   NUTS (``chip_smoke.HMC_ORACLE`` / ``NUTS_ORACLE``) and the draws of its
   key tree (:func:`jax_hmc_draws`), ``multistart_optimize`` with adam
   and ``nm``, and the nonparametric ``ELBOcalc``.
+* the large-N stack (section ``lean``): at N=2000 one float64
+  ``elbo_refine_lean`` sweep, three float32 ``fit_state_lean`` sweeps and
+  the mixed fit with ``fit_method='cg'`` (``chip_smoke.CG_MIXED``); at
+  N=1000 the SVI fit (``chip_smoke.SVI_ORACLE``) with the subsets it
+  drew.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_oracle.py [--all]
 
@@ -267,6 +272,66 @@ def npv_section(gpyrn_tpu):
             "stride": STRIDE, "mu": np.asarray(mu)[:, ::STRIDE].tolist()}
 
 
+def lean_section(gpyrn_tpu):
+    """The large-N stack: the lean engines at N=2000 (one float64
+    ``elbo_refine_lean`` sweep, three float32 ``fit_state_lean`` sweeps
+    from the heuristic start), the mixed fit with ``fit_method='cg'``
+    there, and the SVI fit at N=1000 with its subsets."""
+    import jax
+    import jax.numpy as jnp
+    from gpyrn_tpu.models.svi import make_svi_fit
+    N = chip_smoke.LEAN_CHECK_N
+    g = chip_smoke.headline_problem(gpyrn_tpu, N=N)
+    eng, theta = g.engine, g._theta()
+    t = np.asarray(g.time, dtype=float)
+    mu0, var0 = eng.init_mu_var(theta, g.y)
+    out = {"N": N, "stride": STRIDE}
+    elbo, mu, var = eng.elbo_refine_lean(theta, t, g.y, g.yerr2, mu0, var0,
+                                         1)
+    out["refine"] = {"elbo": float(elbo), **chip_smoke.state_summary(
+        np.asarray(mu), np.asarray(var), STRIDE)}
+
+    def f32(x):
+        return jnp.asarray(np.asarray(x), dtype=jnp.float32)
+
+    mu32, var32, _, _ = eng.fit_state_lean(
+        f32(theta), f32(t), f32(g.y), f32(g.yerr2), f32(mu0), f32(var0),
+        chip_smoke.LEAN_FIT32_SWEEPS, np.float32(0.0))
+    out["fit_state32"] = {"sweeps": chip_smoke.LEAN_FIT32_SWEEPS,
+                          **chip_smoke.state_summary(
+                              np.asarray(mu32, dtype=np.float64),
+                              np.asarray(var32, dtype=np.float64), STRIDE)}
+    g = chip_smoke.headline_problem(gpyrn_tpu, N=chip_smoke.CG_MIXED["N"])
+    g.fit_method = 'cg'
+    for key in ("refine_sweeps", *chip_smoke.CONVERGE):
+        setattr(g, key, chip_smoke.CG_MIXED[key])
+    elbo, _, _, n_iter = g.ELBOcalc(precision='mixed',
+                                    max_iter=chip_smoke.CG_MIXED["max_iter"])
+    out["cg_mixed"] = {**chip_smoke.CG_MIXED, "elbo": float(elbo),
+                       "n_iter": int(n_iter),
+                       "cg_achieved_relres": float(g.cg_achieved_relres)}
+    cfg = chip_smoke.SVI_ORACLE
+    g = chip_smoke.headline_problem(gpyrn_tpu, N=chip_smoke.SVI_N)
+    eng, theta = g.engine, g._theta()
+    mu0, var0 = eng.init_mu_var(theta, g.y)
+    batch_p = max(1, g.p // 4)
+    sv = make_svi_fit(eng.spec, batch_p)
+    mu, var = sv.fit_state_svi(theta, np.asarray(g.time, dtype=float), g.y,
+                               g.yerr2, mu0, var0, cfg["n_steps"],
+                               cfg["seed"], cfg["t0"], cfg["kappa"])
+    # the subsets fit_state_svi draws (models/svi.py, its step loop)
+    base = jax.random.PRNGKey(cfg["seed"])
+    subsets = [np.asarray(jax.random.choice(jax.random.fold_in(base, i),
+                                            g.p, (batch_p,),
+                                            replace=False)).tolist()
+               for i in range(cfg["n_steps"])]
+    out["svi"] = {"N": chip_smoke.SVI_N, **cfg, "batch_p": batch_p,
+                  "subsets": subsets, "stride": STRIDE,
+                  **chip_smoke.state_summary(np.asarray(mu),
+                                             np.asarray(var), STRIDE)}
+    return out
+
+
 def jax_hmc_draws(seed, n_chains, ndim, n_warmup, n_samples, chunk=50,
                   mass_matrix="diag", algorithm="hmc", max_depth=8):
     """The draws of ``gpyrn_tpu.inference.hmc.run_hmc`` with these
@@ -354,7 +419,11 @@ def main():
         "vmap(value_and_grad(elbo_fixed)) over 4 rows (batched_grad), "
         "run_hmc with HMC and NUTS and the draws of its key tree (hmc), "
         "multistart_optimize with adam and nm (multistart), and "
-        "nonparametric ELBOcalc (npv)")
+        "nonparametric ELBOcalc (npv); the large-N stack (lean): one "
+        "float64 elbo_refine_lean sweep and three float32 fit_state_lean "
+        "sweeps at N=2000, the mixed fit with fit_method='cg' there "
+        "polished to the float64 fixed point, and the SVI fit at N=1000 "
+        "with the subsets it drew")
     out["_command"] = COMMAND
     out.setdefault("_jax", jax.__version__)
     sections = list(fit_sections(gpyrn_tpu)) + [
@@ -370,7 +439,8 @@ def main():
         ("batched_grad", lambda: batched_grad_section(gpyrn_tpu)),
         ("hmc", lambda: hmc_section(gpyrn_tpu)),
         ("multistart", lambda: multistart_section(gpyrn_tpu)),
-        ("npv", lambda: npv_section(gpyrn_tpu))]
+        ("npv", lambda: npv_section(gpyrn_tpu)),
+        ("lean", lambda: lean_section(gpyrn_tpu))]
     for name, section in sections:
         if name in out:
             print(name, "kept", flush=True)

@@ -44,19 +44,22 @@ def components_from_jax(nodes, weights, means, jitters):
     return nodes, weights, means, np.array(jitters, dtype=float)
 
 
-# the settings of the mixed-precision fit that both packages share
+# the settings of the mixed-precision fit (and of its CG and SVI bulk
+# fits) that both packages share
 _FIT_ATTRIBUTES = (
     "update_muvar_after", "elbo_max_iter", "refine_sweeps", "refine_tol",
     "refine_max_sweeps", "mixed_tol", "mixed_stall", "stall_block",
     "stall_tol", "stall_patience", "mixed_stop", "fit_accelerate",
     "accel_sweeps", "accel_tol", "accel_patience", "refine_method",
-    "fit_method", "verbose")
+    "fit_method", "cg_rank", "cg_tol", "svi_batch_p", "svi_kappa",
+    "svi_t0", "svi_seed", "verbose")
 
 
 def inference_from_jax(g, device) -> inference:
     """A port :class:`inference` on ``device`` holding the same data,
     components, frozen mask, cached variational state and fit settings
-    (the mixed-precision fit's attributes) as the JAX inference ``g``."""
+    (the mixed-precision fit's attributes, those of its CG and SVI bulk
+    fits included) as the JAX inference ``g``."""
     data = []
     for y, yerr in zip(np.asarray(g.y), np.asarray(g.yerr)):
         data += [y, yerr]

@@ -4,7 +4,8 @@ Port of a subset of :mod:`gpyrn_tpu.inference.meanfield`:
 ``inference(q, time, y1, y1err, ..., device=...)``, ``set_components``,
 ``get_parameters`` / ``set_parameters`` / ``parameters_dict``, freeze and
 thaw, ``ELBO`` / ``ELBOcalc`` (float64, and ``precision='mixed'``: a
-float32 bulk fit and a float64 polish) / ``nELBO``, ``elbo_grad`` and
+float32 bulk fit, dense, CG or SVI, and a float64 polish; the lean engines
+from N = ``LEAN_N`` on) / ``nELBO``, ``elbo_grad`` and
 ``optimize_adam`` (unrolled, and the implicit gradient of the converged
 ELBO), ``optimize`` (scipy), ``optimize_device`` (Nelder-Mead on the
 device over the θ-batched ELBO), ``mcmc`` (the native ensemble sampler,
@@ -30,20 +31,22 @@ from gpyrn_tpu_torch.models import gprn as _core
 from gpyrn_tpu_torch.ops import kernels as covfunc
 from gpyrn_tpu_torch.ops import means as meanfunc
 
-__all__ = ["inference", "STALL_MIN_TOL"]
+__all__ = ["inference", "STALL_MIN_TOL", "LEAN_N"]
 
 # the merit-stall stop (``mixed_stall``) arms only for mixed_tol at or
 # above this: tightening mixed_tol below it is an explicit request for
 # the deepest float32 state the plain state rule can deliver
 STALL_MIN_TOL = 1e-5
 
-# the modes of the mixed fit that are not ported, with their ROADMAP item
-_UNPORTED_FIT_METHODS = {
-    'cg': "fit_method='cg' (the matrix-free CG fit, models/cg_fit.py) is "
-          "not ported yet: ROADMAP A12",
-    'svi': "fit_method='svi' (the stochastic fit, models/svi.py) is not "
-           "ported yet: ROADMAP A12",
-}
+# from this N on, ELBOcalc takes the lean engines (each GP's kernel matrix
+# rebuilt inside its update, one GP's few N² buffers alive at a time)
+# instead of the dense engine (the whole q·(1+p) lattice and its factors).
+# Set from one float64 sweep of each on an H100 (chip_smoke.py phase 25(b),
+# PERF.md): at N=10,000 the lean ELBO sweep took 0.65 (headline) and 0.86
+# (flagship) of the dense one's time and the updates-only sweep 0.98 and
+# 1.03, at 0.14-0.28 of its peak memory; at N=5000 the flagship's lean
+# sweeps took 1.10 and 1.11 of the dense ones
+LEAN_N = 10000
 
 
 class inference:
@@ -128,11 +131,26 @@ class inference:
         # native float64 on the inference's device; the JAX package's
         # 'df64' (double-single emulation for float32 hardware) is not
         # ported
-        self.fit_method = 'dense'   # the JAX package's 'cg' and 'svi'
-        # bulk fits are not ported
+        self.fit_method = 'dense'   # 'dense' | 'cg' | 'svi': how the
+        # mixed fit's float32 bulk runs.  'dense': the dense or (from
+        # N = LEAN_N on) the lean engines.  'cg': the matrix-free
+        # coordinate ascent of models/cg_fit.py (chunked kernel matvecs,
+        # pivoted-Cholesky-preconditioned CG, the closed-form low-rank
+        # posterior diagonal; O(N·(cg_rank + chunk)) memory).  'svi': the
+        # stochastic minibatch-over-outputs fit of models/svi.py, where
+        # max_iter counts SVI steps (default 600)
+        self.cg_rank = 128          # pivoted-Cholesky compression rank
+        self.cg_tol = 1e-6          # inner CG relative-residual tolerance
+        self.cg_achieved_relres = None  # true relres of the last CG fit
+        self.svi_batch_p = None     # outputs per SVI step (None: p // 4)
+        self.svi_kappa = 0.6        # Robbins-Monro decay exponent
+        self.svi_t0 = 5.0           # Robbins-Monro delay
+        self.svi_seed = 0           # seeds the generator of the subsets
         self.mixed_info = {}        # diagnostics of the last mixed fit
         self.implicit_info = {}     # ... and of the last implicit gradient
         self._engine = None
+        self._cg_engine = None      # keyed by (cg_rank, cg_tol)
+        self._svi_engines = {}
         self.verbose = False
 
     def _tensor(self, x, dtype=None):
@@ -180,6 +198,7 @@ class inference:
         self.jitters = np.array(jitters, dtype=float)
         self._components_set = True
         self._engine = None     # structure changed: rebuild lazily
+        self._cg_engine = None
 
     def _require_components(self):
         if not self._components_set:
@@ -345,23 +364,54 @@ class inference:
     # engine plumbing
     # ------------------------------------------------------------------
 
+    def _spec_and_core_maps(self):
+        spec = _core.spec_from_components(self.nodes, self.weights,
+                                          self.means, self.N)
+        core_maps = None
+        if any(k.has_core_map() for k in self.nodes + self.weights):
+            core_maps = (
+                tuple(k.core_params_from if k.has_core_map() else None
+                      for k in self.nodes),
+                tuple(k.core_params_from if k.has_core_map() else None
+                      for k in self.weights))
+        return spec, core_maps
+
     @property
     def engine(self) -> _core.Engine:
         """The fit-and-predict engine of the current model structure."""
         self._require_components()
         if self._engine is None:
-            spec = _core.spec_from_components(self.nodes, self.weights,
-                                              self.means, self.N)
-            core_maps = None
-            kernels = self.nodes + self.weights
-            if any(k.has_core_map() for k in kernels):
-                core_maps = (
-                    tuple(k.core_params_from if k.has_core_map() else None
-                          for k in self.nodes),
-                    tuple(k.core_params_from if k.has_core_map() else None
-                          for k in self.weights))
-            self._engine = _core.Engine(spec, core_maps)
+            self._engine = _core.Engine(*self._spec_and_core_maps())
         return self._engine
+
+    @property
+    def cg_engine(self):
+        """The matrix-free fit (models/cg_fit.py) of ``fit_method='cg'``,
+        rebuilt when the structure or (cg_rank, cg_tol) change."""
+        self._require_components()
+        key = (self.cg_rank, self.cg_tol)
+        if self._cg_engine is None or self._cg_engine[0] != key:
+            from gpyrn_tpu_torch.models.cg_fit import make_cg_fit
+            spec, core_maps = self._spec_and_core_maps()
+            self._cg_engine = (key, make_cg_fit(
+                spec, rank=self.cg_rank, cg_tol=self.cg_tol,
+                core_maps=core_maps))
+        return self._cg_engine[1]
+
+    def _svi_engine(self, batch_p):
+        """The stochastic fit (models/svi.py) sampling ``batch_p`` outputs
+        per step, kept per (structure, batch_p)."""
+        from gpyrn_tpu_torch.models.svi import make_svi_fit
+        spec, core_maps = self._spec_and_core_maps()
+        key = (spec, int(batch_p))
+        if key not in self._svi_engines:
+            self._svi_engines[key] = make_svi_fit(spec, batch_p,
+                                                  core_maps=core_maps)
+        return self._svi_engines[key]
+
+    def _lean(self) -> bool:
+        """Whether ELBOcalc takes the lean engines (N >= LEAN_N)."""
+        return self.N >= LEAN_N
 
     def _theta(self, nodes=None, weights=None, means=None, jitters=None):
         """The full parameter vector (frozen entries included) as a
@@ -450,16 +500,18 @@ class inference:
         return float(e1), np.asarray(mu1), np.asarray(var1), \
             info["evals"] + 1
 
-    def _accelerated_fit32(self, f32_args, max_iter):
+    def _accelerated_fit32(self, f32_args, lean, max_iter):
         """Anderson-accelerated float32 bulk fit (``fit_accelerate``): F
         is one block of ``accel_sweeps`` float32 sweeps through
-        ``engine.elbo_refine``, whose last sweep also evaluates the
-        float32 ELBO, the safeguard merit; the solver mixes block outputs
-        on the host.  The update map is ``fit_state``'s; the stop is the
-        merit-stall rule.  Returns ``(mu32, var32, n_sweeps, converged)``
-        where ``converged`` means the floor was reached before
-        ``max_iter`` sweeps."""
+        ``engine.elbo_refine`` (``elbo_refine_lean`` when ``lean``), whose
+        last sweep also evaluates the float32 ELBO, the safeguard merit;
+        the solver mixes block outputs on the host.  The update map is
+        ``fit_state``'s; the stop is the merit-stall rule.  Returns
+        ``(mu32, var32, n_sweeps, converged)`` where ``converged`` means
+        the floor was reached before ``max_iter`` sweeps."""
         from gpyrn_tpu_torch.ops.fixedpoint import anderson_fixed_point
+        refine = self.engine.elbo_refine_lean if lean \
+            else self.engine.elbo_refine
         theta32, t32, y32, ye32, mu0, var0 = f32_args
         d = mu0.numel()
         k = max(1, int(self.accel_sweeps))
@@ -472,8 +524,8 @@ class inference:
             return x.to(torch.float64).cpu().numpy()
 
         def F(x):
-            e, m2, v2 = self.engine.elbo_refine(
-                theta32, t32, y32, ye32, f32(x[:d]), f32(x[d:]), k)
+            e, m2, v2 = refine(theta32, t32, y32, ye32, f32(x[:d]),
+                               f32(x[d:]), k)
             return np.concatenate([f64_numpy(m2), f64_numpy(v2)]), float(e)
 
         var0_np = f64_numpy(var0)
@@ -490,51 +542,79 @@ class inference:
         return (f32(x[:d]), f32(x[d:]), info["evals"] * k,
                 bool(info["stalled"]))
 
-    def _bulk_fit32(self, theta, mu0, var0, max_iter):
+    def _bulk_fit32(self, theta, mu0, var0, max_iter, user_max_iter=None):
         """The float32 bulk of the mixed fit, in the JAX package's order
-        of precedence.  Returns ``(mu32, var32, n_iter, converged)``."""
+        of precedence, on the lean engines from N = LEAN_N on.  Returns
+        ``(mu32, var32, n_iter, converged)``."""
         f32_args = tuple(a.to(torch.float32)
                          for a in (theta, *self._data(), mu0, var0))
-        eng = self.engine
+        eng, lean = self.engine, self._lean()
         if self.mixed_stop == 'elbo':
             # reference iteration semantics: the float32 fit under the
             # rel-std(3) < 1e-3 ELBO rule
-            _, mu32, var32, n_iter, converged, trace = eng.elbo_fit(
-                *f32_args, max_iter)
+            fit = eng.elbo_fit_lean if lean else eng.elbo_fit
+            _, mu32, var32, n_iter, converged, trace = fit(*f32_args,
+                                                           max_iter)
             info = {'bulk': 'elbo', 'nonfinite_merits': int(
                 (~torch.isfinite(trace)).sum())}
-        elif self.fit_method in _UNPORTED_FIT_METHODS:
-            raise NotImplementedError(_UNPORTED_FIT_METHODS[self.fit_method])
+        elif self.fit_method == 'cg':
+            mu32, var32, n_iter, converged, rres = \
+                self.cg_engine.fit_state_cg(*f32_args, max_iter,
+                                            self.mixed_tol)
+            # the achieved TRUE relative residual of the last sweep's
+            # inner solves: the requested cg_tol may lie under the
+            # float32 floor, so the number reached is recorded
+            self.cg_achieved_relres = float(rres)
+            info = {'bulk': 'cg', 'cg_achieved_relres':
+                    self.cg_achieved_relres}
+        elif self.fit_method == 'svi':
+            # a fixed count of stochastic steps; the reference's
+            # 10000-sweep default is the wrong scale for them
+            n_iter = user_max_iter if user_max_iter is not None else 600
+            bp = self.svi_batch_p or max(1, self.p // 4)
+            mu32, var32 = self._svi_engine(bp).fit_state_svi(
+                *f32_args, int(n_iter), int(self.svi_seed),
+                float(self.svi_t0), float(self.svi_kappa))
+            converged = True
+            info = {'bulk': 'svi'}
+        elif self.fit_method != 'dense':
+            raise ValueError(f"fit_method must be 'dense', 'cg' or 'svi', "
+                             f"got {self.fit_method!r}")
         elif self.fit_accelerate:
             mu32, var32, n_iter, converged = self._accelerated_fit32(
-                f32_args, max_iter)
+                f32_args, lean, max_iter)
             info = {'bulk': 'accelerate'}
         elif self.mixed_stall and self.mixed_tol >= STALL_MIN_TOL:
             info = {'bulk': 'stall'}
-            mu32, var32, n_iter, converged = eng.fit_state_stall(
+            fit = eng.fit_state_stall_lean if lean else eng.fit_state_stall
+            mu32, var32, n_iter, converged = fit(
                 *f32_args, max_iter, self.mixed_tol, int(self.stall_block),
                 float(np.float32(self.stall_tol)), int(self.stall_patience),
                 info)
         else:
-            mu32, var32, n_iter, converged = eng.fit_state(
-                *f32_args, max_iter, self.mixed_tol)
+            fit = eng.fit_state_lean if lean else eng.fit_state
+            mu32, var32, n_iter, converged = fit(*f32_args, max_iter,
+                                                 self.mixed_tol)
             info = {'bulk': 'state'}
+        info['lean'] = lean
         self.mixed_info = info
         return mu32, var32, int(n_iter), bool(converged)
 
     def _polish64(self, theta, mu64, var64):
-        """The float64 polish of the mixed fit, on the inference's device:
-        ``refine_sweeps`` sweeps, or the Anderson polish for
-        ``'converge'``.  Returns ``(elbo, mu, var, n_sweeps)``."""
+        """The float64 polish of the mixed fit, on the inference's device
+        (the lean engines from N = LEAN_N on): ``refine_sweeps`` sweeps,
+        or the Anderson polish for ``'converge'``.  Returns ``(elbo, mu,
+        var, n_sweeps)``."""
         eng, data = self.engine, self._data()
+        refine = eng.elbo_refine_lean if self._lean() else eng.elbo_refine
         if self.refine_sweeps != 'converge':
-            elbo, mu_out, var_out = eng.elbo_refine(
-                theta, *data, mu64, var64, self.refine_sweeps)
+            elbo, mu_out, var_out = refine(theta, *data, mu64, var64,
+                                           self.refine_sweeps)
             return float(elbo), mu_out, var_out, int(self.refine_sweeps)
 
         def sweep1(m, v):
-            e, m2, v2 = eng.elbo_refine(theta, *data, self._tensor(m),
-                                        self._tensor(v), 1)
+            e, m2, v2 = refine(theta, *data, self._tensor(m),
+                               self._tensor(v), 1)
             return float(e), m2.cpu().numpy(), v2.cpu().numpy()
 
         elbo, mu_out, var_out, count = self._converged_refine(
@@ -572,12 +652,15 @@ class inference:
         ``elbo_history`` holds the one final value.  ``mixed_info`` keeps
         the bulk mode, its sweeps, the polish sweeps and, for the stall
         fit, the count of non-finite float32 merits.
+        ``fit_method='cg'`` takes the matrix-free bulk fit
+        (``cg_engine``; ``cg_achieved_relres`` records the true relative
+        residual its last sweep's solves reached) and ``'svi'`` the
+        stochastic one (``max_iter`` steps, default 600).
 
-        The dense engine runs at every N: the JAX package's lean engines
-        (kernel matrices rebuilt per GP per sweep past N = 6000, its
-        ``GPYRN_TPU_LEAN_N`` switch) are not ported.  Neither are
-        ``fit_method='cg'`` / ``'svi'`` and ``refine_method='df64'``,
-        which raise."""
+        From N = ``LEAN_N`` on, every fit and polish here takes the lean
+        engines (each GP's kernel matrix rebuilt inside its update), with
+        the same update map and ELBO terms as the dense engine.
+        ``refine_method='df64'`` is not ported and raises."""
         if precision not in (None, 'mixed'):
             raise ValueError(f"precision must be None or 'mixed', "
                              f"got {precision!r}")
@@ -593,12 +676,13 @@ class inference:
                                  f"got {self.refine_method!r}")
         theta = self._theta(nodes, weights, means, jitters)
         mu0, var0 = self._resolve_mu_var(mu, var, theta)
+        user_max_iter = max_iter
         if max_iter is None:
             max_iter = 10000
         max_iter = int(max_iter)
         if precision == 'mixed':
             mu32, var32, n_bulk, converged = self._bulk_fit32(
-                theta, mu0, var0, max_iter)
+                theta, mu0, var0, max_iter, user_max_iter)
             elbo, mu_out, var_out, n_polish = self._polish64(
                 theta, mu32.to(self.dtype), var32.to(self.dtype))
             self.mixed_info.update(bulk_sweeps=n_bulk,
@@ -607,9 +691,10 @@ class inference:
             trace = torch.full((1,), elbo, dtype=self.dtype,
                                device=self.device)
         else:
-            elbo, mu_out, var_out, n_iter, converged, trace = \
-                self.engine.elbo_fit(theta, *self._data(), mu0, var0,
-                                     max_iter)
+            fit = self.engine.elbo_fit_lean if self._lean() \
+                else self.engine.elbo_fit
+            elbo, mu_out, var_out, n_iter, converged, trace = fit(
+                theta, *self._data(), mu0, var0, max_iter)
         # per-iteration ELBO trajectory (diagnostics)
         self.elbo_history = trace
         if converged:

@@ -1,12 +1,14 @@
 """GPRN mean-field variational inference — engine on torch tensors.
 
-Port of the dense engine of :mod:`gpyrn_tpu.models.gprn`: the closed-form
+Port of the engine of :mod:`gpyrn_tpu.models.gprn`: the closed-form
 coordinate-ascent sweep (eqs. 16–19 of Nguyen & Bonilla 2013) batched over
 the q-node and (q × p)-weight lattice, the three ELBO terms, the reference
 stopping rule, the converged-state fits on the exact-nugget matrices
 (``fit_state``, and ``fit_state_stall`` with its merit-stall rule: the
 float32 bulk of the mixed-precision fit), the fixed-count sweeps and
-their gradient, and the posterior predictive.  The JAX package fuses each
+their gradient, the posterior predictive, and the lean engines
+(``*_lean``: the same fits with each GP's kernel matrix rebuilt inside its
+own update, one GP's buffers alive at a time).  The JAX package fuses each
 fit into one ``lax.while_loop``; here it is an eager Python loop whose
 only host synchronisation is the stopping test, once per sweep (once per
 chunk in ``fit_state_stall``).  The fixed-count sweeps are a plain loop
@@ -52,7 +54,9 @@ from gpyrn_tpu_torch.ops import blocked as _blocked
 from gpyrn_tpu_torch.ops import means as means_mod
 from gpyrn_tpu_torch.ops.linalg import (F32_JITTER_MULT, PREDICT_NUGGET,
                                         TRAIN_NUGGET, cross_kernel_matrix,
-                                        kernel_diag, kernel_matrix_rows,
+                                        kernel_diag, kernel_matrix,
+                                        kernel_matrix_plain,
+                                        kernel_matrix_rows,
                                         kernel_matrix_stack)
 
 __all__ = [
@@ -143,9 +147,32 @@ def unpack_parameters(spec: GPRNSpec, theta):
     return node_p, weight_p, mean_p, jitters
 
 
+# torch solves a batch of more than one matrix on the card with MAGMA's
+# batched potrs, which stops with "invalid argument" from N=7000 on and is
+# the slower of the two at N=5000 (an H100, torch 2.11, chip_smoke.py
+# phase 25(b): batches of 3 ran at N=6000 and failed at 7000; a dense
+# sweep took 0.140 s against 0.091 s); above this N each matrix of a batch
+# is solved alone, through cuSOLVER's potrs
+BATCHED_SOLVE_MAX_N = 4096
+
+
+def _cho_solve_mat(L, B):
+    """Solve (L Lᵀ) X = B for a batch of lower factors and right-hand-side
+    matrices (..., N, k)."""
+    lead = L.shape[:-2]
+    if not (L.is_cuda and L.shape[-1] > BATCHED_SOLVE_MAX_N
+            and lead.numel() > 1):
+        return torch.cholesky_solve(B, L)
+    Lf = L.reshape(-1, *L.shape[-2:])
+    Bf = B.expand(*lead, *B.shape[-2:]).reshape(-1, *B.shape[-2:])
+    return torch.stack([torch.cholesky_solve(b, l)
+                        for l, b in zip(Lf, Bf)]).reshape(*lead,
+                                                          *B.shape[-2:])
+
+
 def _cho_solve(L, b):
     """Solve (L Lᵀ) x = b for a batch of lower factors and vectors."""
-    return torch.cholesky_solve(b.unsqueeze(-1), L).squeeze(-1)
+    return _cho_solve_mat(L, b.unsqueeze(-1)).squeeze(-1)
 
 
 def _on_stack(fn, A):
@@ -291,6 +318,36 @@ class Engine:
                                  torch.diagonal(K, dim1=-2, dim2=-1))
         return sig_rhs, d_sig
 
+    @staticmethod
+    def _node_stats(y_c, variance, muF, muW, varW):
+        """``(dv, pred)`` of the node update (eqs. 16-17): the precision
+        the data add to each node, (q,N), and its information vector,
+        (q,N)."""
+        var_w = variance[..., :, None, :]                        # (p,1,N)
+        dv = torch.sum((muW * muW + varW) / var_w, dim=-3)       # (q,N)
+        total = torch.einsum("...pqn,...qn->...pn", muW, muF)
+        resid = (y_c[..., None, :, :] - total[..., None, :, :] +
+                 muW.transpose(-3, -2) * muF[..., :, None, :])   # (q,p,N)
+        pred = torch.einsum("...qpn,...pqn->...qn", resid, muW / var_w)
+        return dv, pred
+
+    def _weight_stats(self, y_c, variance, muW, mu_f, dSf):
+        """``(ratio, pred2)`` of the weight update (eqs. 18-19) from the
+        new node state and the old weights, flat over the lattice
+        (q·p,N) [index j·p+i]: the diagonal added to each weight's K and
+        its right-hand side."""
+        qp, N = self.spec.q * self.spec.p, self.spec.N
+        batch = mu_f.shape[:-2]
+        dv2 = mu_f * mu_f + dSf                                  # (q,N)
+        ratio = (variance[..., None, :, :] /
+                 dv2[..., :, None, :]).reshape(*batch, qp, N)
+        total2 = torch.einsum("...pqn,...qn->...pn", muW, mu_f)
+        resid2 = (y_c[..., None, :, :] - total2[..., None, :, :] +
+                  muW.transpose(-3, -2) * mu_f[..., :, None, :])  # (q,p,N)
+        pred2 = (resid2 * mu_f[..., :, None, :] /
+                 variance[..., None, :, :]).reshape(*batch, qp, N)
+        return ratio, pred2
+
     def _updates(self, Kf, Kw_flat, y_c, variance, muF, varF, muW, varW):
         """The coordinate-ascent updates (eqs. 16-19), Σ-free:
 
@@ -302,33 +359,19 @@ class Engine:
         dAinv_w)``.  Shapes: Kf (q,N,N), Kw_flat (q·p,N,N) [index j·p+i],
         y_c (p,N), variance (p,N), muF/varF (q,N), muW/varW (p,q,N)."""
         q, p, N = self.spec.q, self.spec.p, self.spec.N
-        qp = q * p
         batch = muF.shape[:-2]
-        var_w = variance[..., :, None, :]                        # (p,1,N)
 
         # -- node update (eqs. 16-17) --
-        dv = torch.sum((muW * muW + varW) / var_w, dim=-3)       # (q,N)
+        dv, pred = self._node_stats(y_c, variance, muF, muW, varW)
         inv_dv = 1.0 / dv
         Af = Kf + torch.diag_embed(inv_dv)
         Laf, dAinv_f = _on_stack(_blocked.blocked_chol_diag_ainv, Af)
-        total = torch.einsum("...pqn,...qn->...pn", muW, muF)
-        muW_qp = muW.transpose(-3, -2)                           # (q,p,N)
-        resid = (y_c[..., None, :, :] - total[..., None, :, :] +
-                 muW_qp * muF[..., :, None, :])                  # (q,p,N)
-        pred = torch.einsum("...qpn,...pqn->...qn", resid, muW / var_w)
         mu_f, dSf = self._sigma_apply(Laf, Kf, pred, inv_dv, dAinv_f)
 
         # -- weight update (eqs. 18-19); uses NEW mu_f, OLD muW --
-        dv2 = mu_f * mu_f + dSf                                  # (q,N)
-        ratio = (variance[..., None, :, :] /
-                 dv2[..., :, None, :]).reshape(*batch, qp, N)    # (q·p,N)
+        ratio, pred2 = self._weight_stats(y_c, variance, muW, mu_f, dSf)
         Aw = Kw_flat + torch.diag_embed(ratio)
         Law, dAinv_w = _on_stack(_blocked.blocked_chol_diag_ainv, Aw)
-        total2 = torch.einsum("...pqn,...qn->...pn", muW, mu_f)
-        resid2 = (y_c[..., None, :, :] - total2[..., None, :, :] +
-                  muW_qp * mu_f[..., :, None, :])                # (q,p,N)
-        pred2 = (resid2 * mu_f[..., :, None, :] /
-                 variance[..., None, :, :]).reshape(*batch, qp, N)
         mu_w_flat, dSw = self._sigma_apply(Law, Kw_flat, pred2, ratio,
                                            dAinv_w)
         mu_w = mu_w_flat.reshape(*batch, q, p, N).transpose(-3, -2)  # (p,q,N)
@@ -679,6 +722,267 @@ class Engine:
         return self._merit_stall_loop(block_fn, mu0, var0, max_iter, tol,
                                       stall_tol, patience, block, info)
 
+    # ---- the lean engines: each GP's K rebuilt inside its own update -------
+    #
+    # The dense engine holds the whole q·(1+p) lattice of N×N matrices and
+    # its factors; the lean engines visit the GPs one at a time, building
+    # K (B1 on the card), factoring and solving inside the GP's update and
+    # dropping all of it before the next GP's build.  Peak memory is one
+    # GP's few N² buffers whatever q·p is; the work per sweep is the
+    # dense sweep's plus one K build per GP (and, on the ELBO path, one
+    # Cholesky of K).  Single θ only, no batch dimensions.
+
+    def _gp_update_lean(self, structure, cp, t, d_add, pred,
+                        builder=kernel_matrix_plain):
+        """One GP's coordinate update, K rebuilt: ``(Σ pred, diag Σ)`` for
+        Σ = K − K A⁻¹ K, A = K + diag(d_add).  ``builder`` is the exact-
+        nugget ``kernel_matrix_plain`` on the updates-only path and the
+        ELBO path's ``kernel_matrix`` when ``elbo_refine_lean`` drives it.
+        A is built out of place: K itself goes on into ``K @ pred`` and
+        the clamp's diag K."""
+        K = builder(structure, cp, t, TRAIN_NUGGET)
+        A = K.clone()
+        A.diagonal().add_(d_add)
+        L, dAinv = _blocked.blocked_chol_diag_ainv(A[None])
+        del A
+        Krhs = K @ pred
+        t1 = _cho_solve(L[0], Krhs)
+        sig_rhs = Krhs - K @ t1
+        return sig_rhs, self._diag_sigma(d_add, dAinv[0], torch.diagonal(K))
+
+    def _lean_cores(self, theta):
+        node_p, weight_p, _, _ = unpack_parameters(self.spec, theta)
+        return (self._core(node_p, self.node_maps),
+                self._core(weight_p, self.weight_maps))
+
+    def _sweep_updates_lean(self, theta, t, y_c, variance, muF, varF, muW,
+                            varW, builder=kernel_matrix_plain):
+        """:meth:`_sweep_updates` with the GPs visited one at a time and
+        each K rebuilt in its update (:meth:`_gp_update_lean`)."""
+        q, p, N = self.spec.q, self.spec.p, self.spec.N
+        node_c, weight_c = self._lean_cores(theta)
+        dv, pred = self._node_stats(y_c, variance, muF, muW, varW)
+        rows = [self._gp_update_lean(s, node_c[j], t, 1.0 / dv[j], pred[j],
+                                     builder)
+                for j, s in enumerate(self.spec.node_structs)]
+        mu_f = torch.stack([r[0] for r in rows])
+        dSf = torch.stack([r[1] for r in rows])
+
+        ratio, pred2 = self._weight_stats(y_c, variance, muW, mu_f, dSf)
+        rows = [self._gp_update_lean(s, weight_c[a], t, ratio[a], pred2[a],
+                                     builder)
+                for a, s in enumerate(self.spec.weight_structs)]
+        mu_w = torch.stack([r[0] for r in rows]).reshape(q, p, N) \
+            .transpose(0, 1)
+        dSw = torch.stack([r[1] for r in rows]).reshape(q, p, N)
+        return mu_f, dSf, mu_w, dSw.transpose(0, 1)
+
+    def _gp_free(self, structure, cp, t, c_diag, pred_vec, keep_factors):
+        """One GP's update and its ELBO ingredients, Σ-free, K from the
+        ELBO path's ``kernel_matrix``: ``(mu, diag Σ, tr(A⁻¹D⁻¹), ½ log
+        det K, log det A, μᵀK⁻¹μ)``, and with ``keep_factors`` the chol of
+        A and L_K⁻¹ (a node's, for the cross traces at q > 1)."""
+        K = kernel_matrix(structure, cp, t, TRAIN_NUGGET)
+        L_K = _blocked.cholesky_nan(K)
+        ldK_half = torch.sum(torch.log(torch.diagonal(L_K)))
+        A = K.clone()
+        A.diagonal().add_(c_diag)
+        L_Ab, dAinv = _blocked.blocked_chol_diag_ainv(A[None])
+        del A
+        L_A, dAinv = L_Ab[0], dAinv[0]
+        ldA = 2.0 * torch.sum(torch.log(torch.diagonal(L_A)))
+        Krhs = K @ pred_vec
+        mu = Krhs - K @ _cho_solve(L_A, Krhs)
+        dS = self._diag_sigma(c_diag, dAinv, torch.diagonal(K))
+        del K
+        tr_same = torch.sum(c_diag * dAinv)
+        # μᵀK⁻¹μ with the post-update mean: the right pairing for nodes
+        # always and for weights at q == 1 (the raw (p,q,N) flatten is the
+        # identity there); q > 1 weights are paired again afterwards
+        muKmu = torch.dot(mu, _cho_solve(L_K, mu))
+        out = (mu, dS, tr_same, ldK_half, ldA, muKmu)
+        if keep_factors:
+            eye = torch.eye(L_K.shape[-1], dtype=L_K.dtype,
+                            device=L_K.device)
+            out += (L_A, torch.linalg.solve_triangular(L_K, eye,
+                                                       upper=False))
+        return out
+
+    def _gp_muKmu(self, structure, cp, t, mvec):
+        """μᵀK⁻¹μ of one GP, K rebuilt (the ELBO path's builder)."""
+        L_K = _blocked.cholesky_nan(kernel_matrix(structure, cp, t,
+                                                  TRAIN_NUGGET))
+        return torch.dot(mvec, _cho_solve(L_K, mvec))
+
+    def _sweep_free_lean(self, theta, t, y_c, y_raw, variance, muF, varF,
+                         muW, varW):
+        """One ELBOaux step with the GPs visited one at a time: the lean
+        counterpart of :meth:`_sweep`, the same determinant and trace
+        identities, each GP's K, prior Cholesky and update factor alive
+        only inside its own update.  Returns ``(elbo, mu_f, varf, mu_w,
+        varw)``."""
+        q, p, N = self.spec.q, self.spec.p, self.spec.N
+        qp = q * p
+        node_c, weight_c = self._lean_cores(theta)
+
+        def stack(rows, k):
+            return torch.stack([r[k] for r in rows])
+
+        # -- node stage --
+        dv, pred = self._node_stats(y_c, variance, muF, muW, varW)
+        inv_dv = 1.0 / dv
+        node_out = [self._gp_free(s, node_c[j], t, inv_dv[j], pred[j],
+                                  q > 1)
+                    for j, s in enumerate(self.spec.node_structs)]
+        mu_f, dSf = stack(node_out, 0), stack(node_out, 1)
+
+        # -- weight stage (fresh mu_f, pre-sweep muW) --
+        ratio, pred2 = self._weight_stats(y_c, variance, muW, mu_f, dSf)
+        weight_out = [self._gp_free(s, weight_c[a], t, ratio[a], pred2[a],
+                                    False)
+                      for a, s in enumerate(self.spec.weight_structs)]
+        mu_w = stack(weight_out, 0).reshape(q, p, N).transpose(0, 1)
+        dSw_qp = stack(weight_out, 1).reshape(q, p, N)
+        muKmu_w = stack(weight_out, 5)
+        if q > 1:
+            # reference quirk: the weight means enter the prior RAW-
+            # flattened (p,q,N) → (q·p,N), row a paired with weight GP a's
+            # kernel: a second rebuild pass pairs them so
+            muW_prior = mu_w.reshape(qp, N)
+            muKmu_w = torch.stack([
+                self._gp_muKmu(s, weight_c[a], t, muW_prior[a])
+                for a, s in enumerate(self.spec.weight_structs)])
+
+        # -- entropy: ½ Σ log det Σ by the determinant identity --
+        ldD_f = torch.sum(torch.log(dv), dim=-1)
+        ldD_w = -torch.sum(torch.log(ratio), dim=-1)
+        ldKh = torch.cat([stack(node_out, 3), stack(weight_out, 3)])
+        ldSig = (2.0 * ldKh
+                 - torch.cat([stack(node_out, 4), stack(weight_out, 4)])
+                 - torch.cat([ldD_f, ldD_w]))
+        ent = 0.5 * torch.sum(ldSig) + 0.5 * q * (p + 1) * N * (1 + LOG_2PI)
+
+        # -- expected log prior, with the cumulative cross traces --
+        tr_f_rows = [node_out[j][2] for j in range(q)]
+        if q > 1:
+            Linv_nodes = stack(node_out, 7)
+            diag_Kinv = torch.sum(Linv_nodes * Linv_nodes, dim=-2)
+            for j in range(1, q):
+                for k in range(j):
+                    term1 = torch.sum(diag_Kinv[j] * inv_dv[k])
+                    T = Linv_nodes[j] * inv_dv[k][None, :]
+                    W = torch.linalg.solve_triangular(
+                        node_out[k][6], T.transpose(-2, -1), upper=False)
+                    tr_f_rows[j] = tr_f_rows[j] + term1 - torch.sum(W * W)
+        tr_all = torch.cat([torch.stack(tr_f_rows), stack(weight_out, 2)])
+        muKmu_all = torch.cat([stack(node_out, 5), muKmu_w])
+        logp = torch.sum(-ldKh - 0.5 * (muKmu_all + tr_all)) \
+            - 0.5 * N * q * (p + 1) * LOG_2PI
+
+        # -- expected log likelihood (raw-y quirk) --
+        logl = -0.5 * torch.sum(torch.log(2 * math.pi * variance))
+        omega_nu = torch.einsum("pqn,qn->pn", mu_w, mu_f)
+        res = y_raw - omega_nu
+        logl = logl - 0.5 * torch.sum(res * res / variance)
+        quad = (dSf[:, None, :] * (mu_w.transpose(0, 1) ** 2) +
+                dSw_qp * (mu_f[:, None, :] ** 2) +
+                dSf[:, None, :] * dSw_qp) / variance[None, :, :]
+        logl = logl - 0.5 * torch.sum(quad)
+
+        elbo = (logl + logp + ent) / q
+        return elbo, mu_f, dSf, mu_w, dSw_qp.transpose(0, 1)
+
+    def _prepare_lean(self, theta, t, y, yerr2):
+        """``(y_c, y_raw, variance)``: the lean engines' per-θ constants
+        (no kernel matrix)."""
+        _, _, _, jitters = unpack_parameters(self.spec, theta)
+        y_c = y - self._mean_values(theta, t)
+        return y_c, y, jitters[:, None] ** 2 + yerr2
+
+    def elbo_fit_lean(self, theta, t, y, yerr2, mu0, var0, max_iter=10000):
+        """:meth:`elbo_fit` (the reference stopping rule and the ELBO
+        trace) with the lean sweep: the reference-semantics fit at N in
+        the tens of thousands.  One boolean comes to the host per sweep
+        from sweep 4 on."""
+        y_c, y_raw, variance = self._prepare_lean(theta, t, y, yerr2)
+        muF, muW = self._u_split(mu0.reshape(-1))
+        varF, varW = self._u_split(var0.reshape(-1))
+        dtype, device = muF.dtype, muF.device
+        elbo = torch.zeros((), dtype=dtype, device=device)
+        hist = torch.full((3,), float("inf"), dtype=dtype, device=device)
+        trace = []
+        it, done = 0, False
+        while not done and it < max_iter:
+            elbo, muF, varF, muW, varW = self._sweep_free_lean(
+                theta, t, y_c, y_raw, variance, muF, varF, muW, varW)
+            hist = torch.cat([hist[1:], elbo.reshape(1)])
+            trace.append(elbo)
+            it += 1
+            if it > 3:
+                done = bool(_rel_std3_stop(hist))
+        trace = torch.stack(trace) if trace else \
+            torch.zeros(0, dtype=dtype, device=device)
+        return (elbo, self._u_join(muF, muW), self._u_join(varF, varW), it,
+                done, trace)
+
+    def elbo_refine_lean(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
+        """``(elbo, mu, var)`` after exactly ``n_sweeps`` lean sweeps: the
+        first n−1 updates-only (one factorization per GP) on the ELBO
+        path's builder, then one full :meth:`_sweep_free_lean`, the same
+        trajectory as n full sweeps."""
+        n_sweeps = int(n_sweeps)
+        if n_sweeps < 1:
+            raise ValueError("n_sweeps must be >= 1 (an unswept ELBO is "
+                             "undefined)")
+        y_c, y_raw, variance = self._prepare_lean(theta, t, y, yerr2)
+        muF, muW = self._u_split(mu0.reshape(-1))
+        varF, varW = self._u_split(var0.reshape(-1))
+        for _ in range(n_sweeps - 1):
+            muF, varF, muW, varW = self._sweep_updates_lean(
+                theta, t, y_c, variance, muF, varF, muW, varW,
+                builder=kernel_matrix)
+        elbo, muF, varF, muW, varW = self._sweep_free_lean(
+            theta, t, y_c, y_raw, variance, muF, varF, muW, varW)
+        return elbo, self._u_join(muF, muW), self._u_join(varF, varW)
+
+    def fit_state_lean(self, theta, t, y, yerr2, mu0, var0, max_iter, tol):
+        """:meth:`fit_state` with the lean updates (exact-nugget builds):
+        ``(mu, var, n_iter, converged)``, one boolean to the host per
+        sweep."""
+        y_c, _, variance = self._prepare_lean(theta, t, y, yerr2)
+        muF, muW = self._u_split(mu0.reshape(-1))
+        varF, varW = self._u_split(var0.reshape(-1))
+        tol = torch.as_tensor(tol, dtype=muF.dtype, device=muF.device)
+        it, done = 0, False
+        while not done and it < max_iter:
+            mu_f, varF, mu_w, varW = self._sweep_updates_lean(
+                theta, t, y_c, variance, muF, varF, muW, varW)
+            done = bool(self._state_delta(mu_f, mu_w, muF, muW) < tol)
+            muF, muW = mu_f, mu_w
+            it += 1
+        return self._u_join(muF, muW), self._u_join(varF, varW), it, done
+
+    def fit_state_stall_lean(self, theta, t, y, yerr2, mu0, var0, max_iter,
+                             tol, block, stall_tol, patience, info=None):
+        """:meth:`fit_state_stall` with the lean sweeps: chunks of
+        ``block − 1`` lean updates (exact-nugget builds) and one
+        :meth:`_sweep_free_lean` (the ELBO path's builder) as the merit
+        sweep, through :meth:`_merit_stall_loop`."""
+        block = int(block)
+        y_c, y_raw, variance = self._prepare_lean(theta, t, y, yerr2)
+
+        def block_fn(muF, varF, muW, varW):
+            for _ in range(block - 1):
+                muF, varF, muW, varW = self._sweep_updates_lean(
+                    theta, t, y_c, variance, muF, varF, muW, varW)
+            e, mu_f, varf, mu_w, varw = self._sweep_free_lean(
+                theta, t, y_c, y_raw, variance, muF, varF, muW, varW)
+            return (e, mu_f, varf, mu_w, varw,
+                    self._state_delta(mu_f, mu_w, muF, muW))
+
+        return self._merit_stall_loop(block_fn, mu0, var0, max_iter, tol,
+                                      stall_tol, patience, block, info)
+
     # ---- fixed sweep counts and the gradient ------------------------------
 
     def _static_sweeps(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
@@ -757,7 +1061,7 @@ class Engine:
         L = _blocked.cholesky_nan(K_all + torch.diag_embed(v_rows))
         sol = _cho_solve(L, m_rows)
         means = torch.einsum("bsk,bk->bs", Ks_all, sol)          # (B, n*)
-        inner = torch.cholesky_solve(Ks_all.transpose(1, 2), L)  # (B, N, n*)
+        inner = _cho_solve_mat(L, Ks_all.transpose(1, 2))      # (B, N, n*)
         vars_ = Kss_diag - torch.einsum("bsk,bks->bs", Ks_all, inner)
 
         n_pred, n_var = means[:q], vars_[:q]                     # (q, n*)

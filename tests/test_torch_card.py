@@ -611,3 +611,78 @@ def test_hmc_log_posterior_gradient_on_card_matches_cpu(cuda):
     (v, gr), (v_c, g_c) = out["cuda"], out["cpu"]
     torch.testing.assert_close(v, v_c, rtol=1e-10, atol=0)
     assert float((gr - g_c).abs().max() / g_c.abs().max()) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_lean_sweeps_launch_one_build_per_gp_and_match_cpu(cuda):
+    """The lean engines on the card: B1 once per GP for an updates-only
+    sweep and for an ELBO sweep, twice for a weight GP at q > 1 (the
+    raw-flatten pairing's second pass); the ELBO and state equal the
+    CPU's (rel 1e-10, state 1e-9)."""
+    from chip_smoke import flagship_problem
+    for make, n_gp, n_builds in ((_headline_small, 4, 4),
+                                 (lambda d: flagship_problem(gt, N=80,
+                                                             device=d),
+                                  8, 2 + 2 * 6)):
+        out = {}
+        for device in (cuda, "cpu"):
+            g = make(device)
+            eng, theta, data = g.engine, g._theta(), g._data()
+            mu0, var0 = eng.init_mu_var(theta, data[1])
+            before = ck.LAUNCHES["kernel_matrix"]
+            mu, var, _, _ = eng.fit_state_lean(theta, *data, mu0, var0, 2,
+                                               0.0)
+            updates = ck.LAUNCHES["kernel_matrix"] - before
+            before = ck.LAUNCHES["kernel_matrix"]
+            elbo, mu, var = eng.elbo_refine_lean(theta, *data, mu0, var0, 1)
+            full = ck.LAUNCHES["kernel_matrix"] - before
+            out[str(device)] = (float(elbo), mu.cpu(), updates, full)
+        e, mu, updates, full = out["cuda"]
+        e_c, mu_c, _, _ = out["cpu"]
+        assert (updates, full) == (2 * n_gp, n_builds)
+        assert abs(e - e_c) <= 1e-10 * abs(e_c)
+        assert float((mu - mu_c).abs().max() / (1 + mu_c.abs().max())) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_matvec_on_card_matches_cpu(cuda, dtype):
+    """ops/iterative.kernel_matvec (plain torch, ragged last chunk) on the
+    card equals the CPU's: 1e-12 of max |y| in float64, 1e-5 in
+    float32."""
+    from gpyrn_tpu_torch.ops import iterative as ti
+    t = np.sort(np.random.default_rng(5).uniform(0, 100, 3001))
+    v = np.random.default_rng(6).standard_normal((3001, 2))
+    pars = (1.0, 30.0, 20.0, 0.7)
+    ys = [ti.kernel_matvec(("QP",), torch.tensor(pars, dtype=dtype,
+                                                 device=d),
+                           torch.tensor(t, dtype=dtype, device=d),
+                           torch.tensor(v, dtype=dtype, device=d),
+                           nugget=1e-2, chunk=1024).cpu()
+          for d in (cuda, "cpu")]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((ys[0] - ys[1]).abs().max()) <= tol * float(
+        ys[1].abs().max())
+
+
+@pytest.mark.cuda
+def test_batched_solve_past_magmas_limit(cuda):
+    """Above BATCHED_SOLVE_MAX_N the engine's solves take each matrix of
+    a batch alone (MAGMA's batched potrs fails there): a batch of two at
+    N=7000 equals two single solves."""
+    from gpyrn_tpu_torch.models import gprn as tg
+    N = 7000
+    assert N > tg.BATCHED_SOLVE_MAX_N
+    t = torch.tensor(np.sort(np.random.default_rng(7).uniform(0, 100, N)),
+                     dtype=torch.float64, device=cuda)
+    K = tlin.kernel_matrix_stack([("SE",), ("M52",)],
+                                 [torch.tensor(p, dtype=torch.float64)
+                                  for p in ((1.0, 3.0), (1.0, 2.0))], t)
+    L = torch.linalg.cholesky(K + 0.1 * torch.eye(N, dtype=K.dtype,
+                                                  device=cuda))
+    b = torch.ones((2, N), dtype=torch.float64, device=cuda)
+    x = tg._cho_solve(L, b)
+    for i in range(2):
+        torch.testing.assert_close(
+            x[i], torch.cholesky_solve(b[i][:, None], L[i])[:, 0],
+            rtol=0, atol=0)

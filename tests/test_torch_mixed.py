@@ -217,9 +217,18 @@ def test_tight_mixed_tol_disarms_the_stall():
     ({"fit_method": "cg"}, "A12"), ({"fit_method": "svi"}, "A12"),
     ({"refine_method": "df64"}, "A13")])
 def test_unported_modes_raise_with_their_roadmap_item(setting, item):
+    """df64 (A13) is not ported and raises; the bulk fits of A12
+    (``fit_method='cg'`` / ``'svi'``) are ported and run as the mixed fit's
+    bulk (tests/test_torch_cg_fit.py and test_torch_svi.py hold them to
+    the JAX package)."""
     port = inference_from_jax(_jax_model(**setting), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        port.ELBOcalc(precision='mixed')
+    if item == "A12":
+        elbo, _, _, n_iter = port.ELBOcalc(precision='mixed', max_iter=4)
+        assert np.isfinite(elbo) and n_iter == 4 + port.refine_sweeps
+        assert port.mixed_info["bulk"] == setting["fit_method"]
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            port.ELBOcalc(precision='mixed')
     # the float64 fit ignores these settings, as in the JAX package
     assert np.isfinite(port.ELBOcalc(max_iter=4)[0])
 

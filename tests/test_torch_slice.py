@@ -137,14 +137,19 @@ def test_parameters_round_trip():
 def test_starting_states_and_precision():
     g = _small()
     g.generator.manual_seed(5)
-    # the modes of the mixed fit that are still to be ported say where
+    # the CG and SVI bulk fits run; df64, not ported, says where
     for attr, value in (("fit_method", "cg"), ("fit_method", "svi"),
                         ("refine_method", "df64")):
         setattr(g, attr, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP A1[23]"):
-            g.ELBOcalc(precision='mixed')
+        if value == "df64":
+            with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+                g.ELBOcalc(precision='mixed')
+        else:
+            assert np.isfinite(g.ELBOcalc(precision='mixed', max_iter=3)[0])
+            assert g.mixed_info["bulk"] == value
         setattr(g, attr, {"fit_method": "dense",
                           "refine_method": "auto"}[attr])
+        g._mu = g._var = None
     with pytest.raises(ValueError, match="precision"):
         g.ELBOcalc(precision='float32')
     e_init, *_ = g.ELBOcalc(max_iter=3)
@@ -173,6 +178,8 @@ def test_imports_and_fits_without_jax():
         from gpyrn_tpu_torch.ops import cuda_kernels, _build
         from gpyrn_tpu_torch.inference import (ensemble, evidence,
                                                neldermead, priors)
+        from gpyrn_tpu_torch.models import cg_fit, iterative, svi
+        from gpyrn_tpu_torch.ops import iterative as ops_iterative
         t = np.linspace(0, 20, 12)
         g = gt.inference(1, t, np.sin(t), np.full(12, 0.1), device="cpu")
         g.set_components(gt.covfunc.SquaredExponential(1.0, 5.0),
@@ -180,6 +187,9 @@ def test_imports_and_fits_without_jax():
                          None, 0.1)
         elbo, mu, var, n_iter = g.ELBOcalc()
         assert np.isfinite(elbo) and n_iter > 0
+        g.fit_method = 'cg'
+        assert np.isfinite(g.ELBOcalc(precision='mixed', max_iter=3)[0])
+        assert iterative.predict_iterative(g, nn=5)[1].shape == (5, 1)
         assert not any(m.split(".")[0] in ("jax", "gpyrn_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
