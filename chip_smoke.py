@@ -130,9 +130,33 @@ ends non-zero:
     timed at 20,000, LOVE at 20,000, ``sample_iterative`` at 50,000, SVI
     (the full-batch identity, the cached JAX subsets, 20 default steps).
 
+29. astro: ``utils.astro.keplerian_rv`` on the card at N=497 (the solar
+    data's times) and 50,000, for e ∈ {0, 0.3, 0.9}, against the CPU and
+    the cached JAX values, and its gradient with respect to (P, K, e, w,
+    Tp) against the cached ``jax.grad``;
+30. the RV workflow: the solar model (``solar_problem``: all 497
+    observations of RV and FWHM from the port's ``datasets.load_solar``,
+    a QuasiPeriodic node, a Keplerian on RV): a converged ``ELBOcalc``,
+    ``predict(nn=1000)``, five ``optimize_adam`` steps and a 13-row
+    ``elbo_fit_batch`` against the cached JAX values; the host's ms of
+    the 13-row mean values in one pass against row by row;
+31. serving: ``export_predict`` on the card of the headline model at
+    N=1000 (the JAX package's converged state) and at N=5000 (the
+    heuristic state), saved and loaded in a fresh process
+    (``chip_smoke.py --serve``) that imports the serving module alone and
+    must not load the shell or the engine; its requests against the
+    in-process ``predict`` and the cached outputs of the JAX package's
+    artifact, B1 launched in every request; the float32 artifact against
+    the JAX package's float32 artifact; export and load seconds, artifact bytes, first-call and
+    steady latency and peak memory per request size;
+32. profiling: ``utils.profiling.trace`` of a served request writes a
+    trace that holds B1 among its device records; the ``StageTimer`` of
+    phases 29–31.
+
 The launch counts are set to 0 before each path (phases 3–5, phases
 6–7, phases 11–12, phases 13–15, phases 17–20, phases 21–24, phases
-25–28) and read after it.  The
+25–28, phases 29–30; phase 31's are counted in its serving process) and
+read after it.  The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -400,6 +424,104 @@ SAMPLE_N = 50000
 SVI_N = 1000
 SVI_ORACLE = {"n_steps": 10, "seed": 0, "t0": 5.0, "kappa": 0.6}
 SVI_TIMED = {"N": 5000, "n_steps": 20}
+
+# the Keplerian RV workflow and the served predictive (phases 29-32).  29:
+# keplerian_rv at the solar data's N and at 50,000 times uniform on its
+# span (default_rng(ASTRO_SEED)), the solar model's orbit with three
+# eccentricities; the gradient of the curve's sum at N=497.  30: the solar
+# model (examples/example_2.py without its subsample, a Keplerian on RV);
+# its θ batch as phase 17's.  31: the headline model served from the
+# JAX package's converged state (N=1000) and from the heuristic state
+# (N=5000, above BATCHED_SOLVE_MAX_N), loaded in a fresh process
+# (``chip_smoke.py --serve``), at request sizes SERVE[...]["ns"]
+SOLAR_KEPLERIAN = (100.0, 1.0, 0.1, 0.5, 0.0)        # P, K, e, w, Tp
+ASTRO_ECCENTRICITIES = (0.0, 0.3, 0.9)
+ASTRO_NS = (497, 50000)
+ASTRO_SEED = 5
+ASTRO_STRIDE = 97
+# keplerian_rv on the card against the CPU (the same operations; sin, cos,
+# tan and atan round differently in the two math libraries), against the
+# JAX package's values, and its gradient against jax.grad (of max |g|):
+# measured 3.7e-14 against JAX at e=0.9 on a CPU, where 100 Newton steps
+# carry the last bits of the first ones
+ASTRO_CPU_RTOL = 1e-12
+ASTRO_JAX_RTOL = 1e-10
+ASTRO_GRAD_TOL = 1e-9
+SOLAR_STRIDE = 7
+SOLAR_NN = 1000
+SERVE_ARG = "--serve"
+SERVE = {"headline": {"N": N_MAIN, "ns": (1, 7, 1000, 10000)},
+         "wide": {"N": N_WIDE, "ns": (1, 1000)}}
+SERVE_STRIDE = 97
+SERVE_STEADY_REPS = 5
+SERVE_F32_N = 1000
+# served outputs against the in-process predict (the same operations) and
+# against the JAX package's artifact (cuSOLVER against LAPACK); the float32
+# artifact against the JAX package's float32 artifact, at the bar of
+# tests/test_serving.py::test_f32_export_dtype (5e-4).  Each is max |Δ| /
+# max |ref| per output.  The float32 artifact is not held to the float64
+# one: at N=1000 from the converged state both packages' float32 programs
+# lie 0.0125 (mean) and 0.045 (var) of max |ref| from float64 on a CPU, the
+# float32 trace-scaled jitter (4·eps·tr K) changing the model itself; the
+# port's lay 5.1e-5 from the JAX package's there
+SERVE_RTOL = {"predict": 1e-12, "jax": 1e-9, "float32": 5e-4}
+# the served program's B1 operator (gpyrn_torch::kernel_matrix_stack) on
+# the served models' own structures and parameters against the plain
+# version, at B1's tolerances of phase 8 (rtol, atol of max |ref|)
+STACK_OP_TOL = {"float64": (1e-12, 1e-14), "float32": (2e-6, 1e-6)}
+
+
+def solar_problem(pkg, **kw):
+    """The solar RV workflow's model: RV and FWHM of the bundled solar
+    data (all 497 observations), one QuasiPeriodic node, SquaredExponential
+    weights of the outputs' std, a Keplerian on RV and a zero constant on
+    FWHM, jitters of half the std (examples/example_2.py's model, with the
+    planet)."""
+    import importlib
+    datasets = importlib.import_module(pkg.__name__ + ".datasets")
+    time, data = datasets.load_solar(("RV", "FWHM"))
+    g = pkg.inference(1, time, *data, **kw)
+    s_rv, s_fwhm = np.std(data[0]), np.std(data[2])
+    g.set_components(
+        pkg.covfunc.QuasiPeriodic(1.0, 30.0, 27.0, 0.7),
+        [pkg.covfunc.SquaredExponential(s_rv, 30.0),
+         pkg.covfunc.SquaredExponential(s_fwhm, 30.0)],
+        [pkg.meanfunc.Keplerian(*SOLAR_KEPLERIAN),
+         pkg.meanfunc.Constant(0.0)],
+        [s_rv / 2, s_fwhm / 2])
+    return g
+
+
+def astro_times(solar_time):
+    """The times of phase 29, one array per ``ASTRO_NS``: the solar data's
+    own, then uniform draws on its span."""
+    rng = np.random.default_rng(ASTRO_SEED)
+    span = float(np.max(solar_time))
+    return {n: (np.asarray(solar_time, dtype=float) if n == solar_time.size
+                else np.sort(rng.uniform(0.0, span, n))) for n in ASTRO_NS}
+
+
+def astro_params(e):
+    """(P, K, e, w, Tp) of the solar model's orbit with eccentricity e."""
+    P, K, _, w, Tp = SOLAR_KEPLERIAN
+    return (P, K, e, w, Tp)
+
+
+def serve_times(time, n):
+    """A request of n prediction times over the data's span widened by a
+    fifth on each side (``predict``'s default grid)."""
+    lo, hi = float(np.min(time)), float(np.max(time))
+    span = hi - lo
+    return np.linspace(lo - 0.2 * span, hi + 0.2 * span, n)
+
+
+def serve_summary(outputs):
+    """Each of predict's four outputs flattened row by row, whole up to
+    1000 values, else every ``SERVE_STRIDE``-th (what the cached oracle
+    keeps of them)."""
+    flat = [np.asarray(o, dtype=float).ravel() for o in outputs]
+    return [(f if f.size <= 1000 else f[::SERVE_STRIDE]).tolist()
+            for f in flat]
 
 
 def batch_thetas(theta0, rows, spread, seed):
@@ -2902,6 +3024,398 @@ def large_main(torch, pkg, ck, lin):
                       "predict": pred, "seconds": wall}), flush=True)
 
 
+# ---- the Keplerian RV workflow and serving (phases 29-32) ---------------
+
+SERVE_DIR = os.path.join(HERE, ".smoke_serving")
+
+
+def _max_rel(a, b):
+    """max |a - b| / max |b| of two arrays."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def _host(x):
+    return x.detach().cpu().numpy()
+
+
+def phase_astro(torch, pkg, oracle):
+    """``keplerian_rv`` on the card against the CPU and the cached JAX
+    values at N=497 and 50,000 for each eccentricity, and its gradient with
+    respect to (P, K, e, w, Tp) against the cached ``jax.grad``."""
+    from gpyrn_tpu_torch.datasets import load_solar
+    from gpyrn_tpu_torch.utils.astro import keplerian_rv
+    ref = oracle["astro"]
+    times = astro_times(load_solar()[0])
+    n_small = min(ASTRO_NS)
+    checks, ms = [], {}
+    for e in ASTRO_ECCENTRICITIES:
+        pars = astro_params(e)
+        for n, t in times.items():
+            t_gpu = torch.tensor(t, dtype=torch.float64, device="cuda")
+            rv, wall = _timed(torch, lambda: keplerian_rv(t_gpu, *pars))
+            rv = _host(rv)
+            cpu = keplerian_rv(torch.tensor(t), *pars).numpy()
+            stride = 1 if n == n_small else ref["stride"]
+            jax_ref = ref["rv"][repr(e)][str(n)]
+            ms[f"e={e} N={n}"] = 1e3 * wall
+            checks += [
+                (f"e={e} N={n} finite", bool(np.isfinite(rv).all()),
+                 f"{rv.shape}"),
+                (f"e={e} N={n} cuda vs cpu",
+                 _max_rel(rv, cpu) <= ASTRO_CPU_RTOL,
+                 f"{_max_rel(rv, cpu):.3e} (limit {ASTRO_CPU_RTOL})"),
+                (f"e={e} N={n} cuda vs jax",
+                 _max_rel(rv[::stride], jax_ref) <= ASTRO_JAX_RTOL,
+                 f"{_max_rel(rv[::stride], jax_ref):.3e} "
+                 f"(limit {ASTRO_JAX_RTOL})")]
+        p = torch.tensor(pars, dtype=torch.float64, device="cuda",
+                         requires_grad=True)
+        t_gpu = torch.tensor(times[n_small], dtype=torch.float64,
+                             device="cuda")
+        rv = keplerian_rv(t_gpu, P=p[0], K=p[1], e=p[2], w=p[3], T=p[4])
+        (grad,) = torch.autograd.grad(rv.sum(), p)
+        err = _grad_error(_host(grad), ref["grad"][repr(e)])
+        checks.append((f"e={e} gradient vs jax.grad", err <= ASTRO_GRAD_TOL,
+                       f"{err:.3e} of max |g| (limit {ASTRO_GRAD_TOL})"))
+    print("astro: keplerian_rv wall ms (first call of each, host clock to "
+          "synchronize): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()),
+          flush=True)
+    _check("astro", checks)
+
+
+def _mean_values_by_row(torch, eng, theta, t):
+    """The engine's mean values as computed before the θ batch was
+    evaluated in one pass: each row's means alone, stacked (the host-cost
+    comparison of phase 30)."""
+    from gpyrn_tpu_torch.models.gprn import unpack_parameters
+    from gpyrn_tpu_torch.ops import means as means_mod
+    out = []
+    for row in theta:
+        _, _, mean_p, _ = unpack_parameters(eng.spec, row)
+        out.append(torch.stack([
+            t.new_zeros(t.shape) if s is None
+            else means_mod.evaluate(s, mp, t)
+            for s, mp in zip(eng.spec.mean_structs, mean_p)]))
+    return torch.stack(out)
+
+
+def phase_solar(torch, pkg, oracle, ck):
+    """The solar RV workflow on the card: a converged ``ELBOcalc``,
+    ``predict(nn=1000)``, five ``optimize_adam`` steps and a 13-row
+    ``elbo_fit_batch`` against the cached JAX values; the host's ms of the
+    13-row mean values, in one pass and row by row."""
+    ref = oracle["solar"]
+    stride = ref["stride"]
+    g = solar_problem(pkg, device="cuda")
+    (elbo, mu, var, n_iter), dt_fit = _timed(torch, g.ELBOcalc)
+    (_, mean, std, _), dt_pred = _timed(
+        torch, lambda: g.predict(nn=SOLAR_NN))
+    summary = state_summary(_host(mu), _host(var), stride)
+    checks = [
+        ("n_iter vs jax", n_iter == ref["fit"]["n_iter"],
+         f"{n_iter} vs {ref['fit']['n_iter']}"),
+        ("ELBO vs jax", _rel(elbo, ref["fit"]["elbo"]) <= ELBO_RTOL,
+         f"rel {_rel(elbo, ref['fit']['elbo']):.3e} (limit {ELBO_RTOL})")]
+    for key in ("mu", "var"):
+        err = _rel_state_err(summary[key], ref["fit"][key])
+        checks.append((f"{key} vs jax", err <= STATE_TOL,
+                       f"{err:.3e} (limit {STATE_TOL})"))
+    for key, got in (("mean", mean), ("std", std)):
+        err = _rel_state_err(_host(got)[::stride], ref["predict"][key])
+        checks.append((f"predict {key} vs jax", err <= STATE_TOL,
+                       f"{err:.3e} (limit {STATE_TOL})"))
+    print(f"solar: N={g.N}, converged ELBOcalc {elbo!r} in {n_iter} sweeps "
+          f"{dt_fit:.3f} s; predict(nn={SOLAR_NN}) {dt_pred:.3f} s",
+          flush=True)
+
+    g = solar_problem(pkg, device="cuda")
+    res, dt_adam = _timed(torch, lambda: g.optimize_adam(
+        n_steps=ADAM_STEPS, n_sweeps=GRAD_SWEEPS["headline"]))
+    x, x_ref = np.asarray(res["x"], dtype=float), \
+        np.asarray(ref["adam"]["x"], dtype=float)
+    zero = x_ref == 0
+    x_err = float(np.max(np.abs(x - x_ref)[~zero] / np.abs(x_ref[~zero])))
+    checks += [
+        ("adam x vs optax (entries at 0 stay 0: log transform)",
+         x_err <= ADAM_X_RTOL and bool(np.all(x[zero] == 0)),
+         f"max rel {x_err:.3e} (limit {ADAM_X_RTOL})"),
+        ("adam elbo vs optax",
+         _rel(res["elbo"], ref["adam"]["elbo"]) <= ELBO_RTOL,
+         f"rel {_rel(res['elbo'], ref['adam']['elbo']):.3e}")]
+    print(f"solar: {ADAM_STEPS} optimize_adam steps ({GRAD_SWEEPS['headline']}"
+          f" sweeps) {dt_adam:.3f} s, elbo {res['elbo']!r}", flush=True)
+
+    g = solar_problem(pkg, device="cuda")
+    eng, data = g.engine, g._data()
+    thetas, mu0, var0 = _batch_inputs(g, BATCH)
+    (elbo_b, mu_b, var_b, n_iter_b, conv_b), wall = _timed(
+        torch, lambda: eng.elbo_fit_batch(thetas, *data, mu0, var0,
+                                          BATCH["max_iter"]))
+    n_iter_b, conv_b = n_iter_b.cpu().tolist(), conv_b.cpu().tolist()
+    b = ref["batch"]
+    e_err = _max_rel(_host(elbo_b), b["elbo"])
+    s_err = max(_rel_state_err(
+        state_summary(_host(mu_b[w]), _host(var_b[w]), stride)[key],
+        b[key][w]) for w in range(BATCH["rows"]) for key in ("mu", "var"))
+    checks += [
+        ("batch n_iter and converged vs jax",
+         n_iter_b == b["n_iter"] and conv_b == b["converged"],
+         f"{n_iter_b} vs {b['n_iter']}"),
+        ("batch ELBO vs jax", e_err <= ELBO_RTOL,
+         f"max rel {e_err:.3e} (limit {ELBO_RTOL})"),
+        ("batch state vs jax", s_err <= STATE_TOL,
+         f"{s_err:.3e} (limit {STATE_TOL})")]
+    print(f"solar: elbo_fit_batch of {BATCH['rows']} rows {wall:.3f} s, "
+          f"{max(n_iter_b)} batched sweeps", flush=True)
+
+    t = data[0]
+    counted = dict(ck.LAUNCHES)
+    one_pass = eng._mean_values(thetas, t)
+    by_row = _mean_values_by_row(torch, eng, thetas, t)
+    diff = _max_rel(_host(one_pass), _host(by_row))
+    enq, done = _host_ms(torch, lambda: eng._mean_values(thetas, t), 20)
+    enq_row, done_row = _host_ms(
+        torch, lambda: _mean_values_by_row(torch, eng, thetas, t), 5)
+    ck.LAUNCHES.update(counted)
+    print(f"solar: the {BATCH['rows']}-row mean values (a Keplerian of 100 "
+          f"Newton steps): one pass {enq:.3f} ms of host to enqueue, "
+          f"{done:.3f} ms to finish; row by row {enq_row:.3f} / "
+          f"{done_row:.3f} ms ({enq_row / enq:.1f}x the host time); the "
+          f"two differ by {diff:.3e}", flush=True)
+    checks.append(("13-row mean values, one pass vs row by row",
+                   diff <= 1e-14, f"{diff:.3e} (limit 1e-14)"))
+    _check("solar", checks)
+
+
+def _serving_models(torch, pkg, oracle):
+    """The two served models on the card: the headline at N=1000 with the
+    JAX package's converged state, and at N=5000 from the heuristic
+    state."""
+    ref = oracle["serving"]
+    out = {}
+    for key, cfg in SERVE.items():
+        g = headline_problem(pkg, N=cfg["N"], device="cuda")
+        if key == "headline":
+            g._mu = g._tensor(ref[key]["state"]["mu"])
+            g._var = g._tensor(ref[key]["state"]["var"])
+        else:
+            g._mu, g._var = g.engine.init_mu_var(g._theta(),
+                                                 g._tensor(g.y))
+        out[key] = g
+    return out
+
+
+def phase_stack_op(torch, ck, lin, models):
+    """``kernel_matrix_stack_op``, the wrapper of the operator that the
+    exported program calls, on each served model's node and weight
+    structures and parameters as ``Engine.predict`` hands them to it (the
+    prediction nugget), in float64 and float32, against
+    ``kernel_matrix_stack_ref`` on the same inputs; one B1 launch per
+    matrix, and bit for bit the result of ``kernel_matrix_stack_cuda``."""
+    from gpyrn_tpu_torch.models.gprn import unpack_parameters
+    counted = dict(ck.LAUNCHES)
+    for key, g in models.items():
+        eng, spec = g.engine, g.engine.spec
+        node_p, weight_p, _, _ = unpack_parameters(spec, g._theta())
+        structures = list(spec.node_structs) + list(spec.weight_structs)
+        core = (list(eng._core(node_p, eng.node_maps))
+                + list(eng._core(weight_p, eng.weight_maps)))
+        for dtype in (torch.float64, torch.float32):
+            rtol, atol = STACK_OP_TOL[_dtype_name(dtype)]
+            t = g._tensor(g.time, dtype).contiguous()
+            params = [p.to(dtype).contiguous() for p in core]
+            args = (params, t, lin.PREDICT_NUGGET, lin.F32_JITTER_MULT)
+            ck.reset_launch_counts()
+            K = ck.kernel_matrix_stack_op(structures, *args)
+            torch.cuda.synchronize()
+            launched = dict(ck.LAUNCHES)
+            R = ck.kernel_matrix_stack_ref(structures, *args)
+            D = ck.kernel_matrix_stack_cuda(structures, *args)
+            err = float((K - R).abs().max())
+            _check(f"stack operator {key} N={g.N} {_dtype_name(dtype)}", [
+                ("B1 launches",
+                 launched == {"kernel_matrix": len(structures),
+                              "kernel_matrix_grad": 0},
+                 f"{launched} (expected {len(structures)} of B1)"),
+                ("shape", tuple(K.shape) == (len(structures), g.N, g.N),
+                 f"{tuple(K.shape)}"),
+                ("vs the plain version",
+                 bool(((K - R).abs() <= atol * R.abs().amax()
+                       + rtol * R.abs()).all()),
+                 f"max abs err {err:.3e}, bit-equal {torch.equal(K, R)} "
+                 f"(rtol {rtol}, atol {atol} of max |ref|)"),
+                ("bit-equal to kernel_matrix_stack_cuda", torch.equal(K, D),
+                 f"{float((K - D).abs().max()):.3e}")])
+    ck.LAUNCHES.update(counted)
+
+
+def phase_serving(torch, pkg, oracle, ck, lin):
+    """The served program's B1 operator on both models' structures
+    (:func:`phase_stack_op`), then ``export_predict`` of both models on
+    the card, saved, loaded and served in a fresh process (``--serve``) that must not import the shell
+    or the engine; its outputs against the in-process predict and the JAX
+    package's artifact; the float32 artifact against the JAX package's.
+    Returns
+    (B1 launches of the served requests, the headline artifact's path)."""
+    import shutil
+    import warnings
+    from gpyrn_tpu_torch import serving
+    ref = oracle["serving"]
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    models = _serving_models(torch, pkg, oracle)
+    phase_stack_op(torch, ck, lin, models)
+    manifest = []
+    for key, g in models.items():
+        path = os.path.join(SERVE_DIR, f"{key}.pt2")
+        nbytes, export_s = _timed(torch, lambda: g.export_predict(path))
+        manifest.append({"name": key, "path": path, "ns": SERVE[key]["ns"],
+                         "time": [float(np.min(g.time)),
+                                  float(np.max(g.time))]})
+        print(f"serving: {key} (N={g.N}) exported in {export_s:.3f} s, "
+              f"artifact {nbytes} bytes", flush=True)
+    with open(os.path.join(SERVE_DIR, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+
+    lines = _child(SERVE_ARG)
+    print("\n".join(lines[:-1]), flush=True)
+    served = json.loads(lines[-1])
+    checks = [("the serving process loaded neither the shell nor the engine",
+               not served["modules"], f"{served['modules']}")]
+    for key, g in models.items():
+        for n in SERVE[key]["ns"]:
+            tstar = serve_times(g.time, n)
+            mean, var, (npred, wpred) = g._Prediction(tstar=tstar,
+                                                      separate=True)
+            local = [_host(x) for x in (mean, var, npred, wpred)]
+            got = np.load(os.path.join(SERVE_DIR, f"{key}_{n}.npz"))
+            got = [got[f"out{i}"] for i in range(4)]
+            e_local = max(_max_rel(a, b) for a, b in zip(got, local))
+            e_jax = max(_max_rel(a, b) for a, b in zip(
+                serve_summary(got), ref[key]["requests"][str(n)]))
+            req = served["requests"][f"{key}_{n}"]
+            checks += [
+                (f"{key} n*={n} served vs predict",
+                 e_local <= SERVE_RTOL["predict"],
+                 f"{e_local:.3e} (limit {SERVE_RTOL['predict']})"),
+                (f"{key} n*={n} served vs the JAX artifact",
+                 e_jax <= SERVE_RTOL["jax"],
+                 f"{e_jax:.3e} (limit {SERVE_RTOL['jax']})"),
+                (f"{key} n*={n} B1 launches per request",
+                 req["launches_per_request"] > 0,
+                 f"{req['launches_per_request']}")]
+
+    g = models["headline"]
+    tstar = serve_times(g.time, SERVE_F32_N)
+    (program32, export32_s) = _timed(torch, lambda: serving.export_predict(
+        g, dtype=torch.float32))
+    serve32 = serving.ServingPredictor(program32)
+    counted = dict(ck.LAUNCHES)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out32 = [_host(o) for o in serve32(tstar)]
+    ck.LAUNCHES.update(counted)
+    e32 = max(_max_rel(a, b) for a, b in zip(
+        serve_summary(out32), ref["headline"]["float32"]))
+    mean, var = (_host(x) for x in g._Prediction(tstar=tstar))
+    print(f"serving: float32 artifact exported in {export32_s:.3f} s; "
+          f"against float64 {_max_rel(out32[0], mean):.3e} (mean), "
+          f"{_max_rel(out32[1], var):.3e} (var) of max |ref|", flush=True)
+    checks += [
+        ("float32 artifact vs the JAX package's float32 artifact",
+         e32 <= SERVE_RTOL["float32"],
+         f"{e32:.3e} (limit {SERVE_RTOL['float32']})"),
+        ("float32 artifact: dtype and one narrowing warning",
+         serve32.dtype == torch.float32 and out32[0].dtype == np.float32
+         and len(caught) == 1, f"{serve32.dtype}, {len(caught)} warning")]
+    _check("serving", checks)
+    return served["launches"], models["headline"].time
+
+
+def serve_main(torch):
+    """Phase 31's serving process: loads each artifact of the manifest
+    with ``serving.load_predict`` alone, answers its requests, writes the
+    outputs beside it, and prints the timings, the B1 launches and the
+    package modules it loaded as its last line."""
+    from gpyrn_tpu_torch.ops import cuda_kernels as ck
+    from gpyrn_tpu_torch.serving import load_predict
+    with open(os.path.join(SERVE_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    requests, loads, launches = {}, {}, 0
+    for item in manifest:
+        serve, load_s = _timed(torch, lambda: load_predict(item["path"]))
+        loads[item["name"]] = load_s
+        for n in item["ns"]:
+            tstar = serve_times(np.asarray(item["time"]), n)
+            ck.reset_launch_counts()
+            out, first = _timed(torch, lambda: serve(tstar))
+            torch.cuda.reset_peak_memory_stats()
+            steady = [_timed(torch, lambda: serve(tstar))[1]
+                      for _ in range(SERVE_STEADY_REPS)]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            calls = 1 + SERVE_STEADY_REPS
+            launched = ck.LAUNCHES["kernel_matrix"]
+            launches += launched
+            np.savez(os.path.join(SERVE_DIR, f"{item['name']}_{n}.npz"),
+                     **{f"out{i}": _host(o) for i, o in enumerate(out)})
+            requests[f"{item['name']}_{n}"] = {
+                "first_ms": 1e3 * first,
+                "steady_ms": 1e3 * float(np.median(steady)),
+                "peak_gib": peak, "launches_per_request": launched / calls}
+            print(f"serve: {item['name']} n*={n}: first call "
+                  f"{1e3 * first:.3f} ms, steady {1e3 * np.median(steady):.3f}"
+                  f" ms (median of {SERVE_STEADY_REPS}), peak "
+                  f"{peak:.3f} GiB, B1 launches per request "
+                  f"{launched / calls:g}", flush=True)
+        print(f"serve: {item['name']} loaded in {load_s:.3f} s", flush=True)
+    modules = sorted(m for m in sys.modules if m.startswith(
+        ("gpyrn_tpu_torch.inference", "gpyrn_tpu_torch.models", "jax",
+         "gpyrn_tpu.")))
+    print(json.dumps({"requests": requests, "loads": loads,
+                      "launches": launches, "modules": modules}), flush=True)
+
+
+def phase_profiling(torch, timer, path, time):
+    """``profiling.trace`` of one served request (N=1000, n*=1000) in this
+    process: the written trace must hold B1 among its device records (a
+    trace without device records is taken again, up to ``TRACE_TRIES``
+    times); then the stage timer's report of phases 29-31."""
+    import glob
+    import shutil
+    from gpyrn_tpu_torch.serving import load_predict
+    from gpyrn_tpu_torch.utils.profiling import trace
+    serve = load_predict(path)
+    tstar = serve_times(time, 1000)
+    serve(tstar)
+    logdir = os.path.join(SERVE_DIR, "trace")
+    for attempt in range(1, TRACE_TRIES + 1):
+        shutil.rmtree(logdir, ignore_errors=True)
+        with trace(logdir):
+            serve(tstar)
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace() wrote {files}, not one trace")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        device = [e for e in events if e.get("cat") == "kernel"]
+        b1 = [e for e in device if "kernel_matrix_kernel" in e["name"]]
+        if b1:
+            break
+        print(f"trace {attempt} of {TRACE_TRIES}: {len(device)} device "
+              "records, none of them B1", file=sys.stderr, flush=True)
+    else:
+        raise AssertionError(f"trace() wrote no B1 record in {TRACE_TRIES} "
+                             "traces")
+    busy = sum(e["dur"] for e in device) / 1e3
+    print(f"profiling: trace() wrote {os.path.getsize(files[0])} bytes, "
+          f"{len(events)} records, {len(device)} device kernels "
+          f"({busy:.3f} ms), B1 {len(b1)} launches "
+          f"({sum(e['dur'] for e in b1) / 1e3:.4f} ms)", flush=True)
+    print("profiling: StageTimer of phases 29-31:\n" + timer.report(),
+          flush=True)
+
+
 def _child(arg):
     """The output lines of this script run with ``arg`` in a fresh
     process; its failure fails the run."""
@@ -2921,6 +3435,9 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke run needs an NVIDIA GPU")
     sys.path.insert(0, HERE)
+    if sys.argv[1:] == [SERVE_ARG]:
+        serve_main(torch)
+        return
     import gpyrn_tpu_torch as pkg
     from gpyrn_tpu_torch.ops import _build
     from gpyrn_tpu_torch.ops import cuda_kernels as ck
@@ -3074,6 +3591,39 @@ def main():
         raise AssertionError("the large-N path never launched "
                              "kernel_matrix")
 
+    # the Keplerian RV workflow, then the served predictive
+    from gpyrn_tpu_torch.utils.profiling import StageTimer
+    timer = StageTimer()
+    t_rv = time.perf_counter()
+    ck.reset_launch_counts()
+    print("== phase 29: astro, keplerian_rv on the card", flush=True)
+    with timer.stage("phase 29: astro"):
+        phase_astro(torch, pkg, oracle)
+    print("== phase 30: the RV workflow, solar model", flush=True)
+    with timer.stage("phase 30: solar"):
+        phase_solar(torch, pkg, oracle, ck)
+    solar_launches = dict(ck.LAUNCHES)
+    print(f"solar path launches: {solar_launches}", flush=True)
+    if min(solar_launches.values()) == 0:
+        raise AssertionError("the solar path never launched one of its "
+                             f"kernels: {solar_launches}")
+    print("== phase 31: serving, export on the card and a fresh serving "
+          "process", flush=True)
+    with timer.stage("phase 31: serving"):
+        served_launches, headline_time = phase_serving(torch, pkg, oracle,
+                                                       ck, lin)
+    serving_launches = {"kernel_matrix": served_launches,
+                        "kernel_matrix_grad": 0}
+    print(f"serving path launches (the serving process): "
+          f"{serving_launches}", flush=True)
+    print("== phase 32: profiling", flush=True)
+    phase_profiling(torch, timer, os.path.join(SERVE_DIR, "headline.pt2"),
+                    headline_time)
+    import shutil
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    print(f"phases 29-32 took {time.perf_counter() - t_rv:.1f} s",
+          flush=True)
+
     kernels = []
     for kname, rec in (("kernel_matrix", record),
                        ("kernel_matrix_grad", grad_record)):
@@ -3082,7 +3632,9 @@ def main():
                    "implicit": implicit_launches[kname],
                    "batch": batch_launches[kname],
                    "sampler": sampler_launches[kname],
-                   "large": large_launches[kname]}
+                   "large": large_launches[kname],
+                   "solar": solar_launches[kname],
+                   "serving": serving_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",

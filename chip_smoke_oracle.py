@@ -30,6 +30,15 @@
   the mixed fit with ``fit_method='cg'`` (``chip_smoke.CG_MIXED``); at
   N=1000 the SVI fit (``chip_smoke.SVI_ORACLE``) with the subsets it
   drew.
+* the Keplerian RV workflow: ``keplerian_rv`` at the times of
+  ``chip_smoke.astro_times`` and its ``jax.grad`` (section ``astro``); the
+  solar model (``chip_smoke.solar_problem``, N=497): the converged
+  ``ELBOcalc``, ``predict(nn=1000)``, five ``optimize_adam`` steps and
+  ``vmap(elbo_fit)`` over 13 rows (section ``solar``); the served
+  predictive (section ``serving``): ``gpyrn_tpu.serving``'s artifact of
+  the headline model from its converged state (kept whole) at N=1000 and
+  from the heuristic state at N=5000, called at ``chip_smoke.SERVE``'s
+  request sizes, and its float32 artifact of the headline model.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_oracle.py [--all]
 
@@ -332,6 +341,99 @@ def lean_section(gpyrn_tpu):
     return out
 
 
+def astro_section(gpyrn_tpu):
+    import jax
+    import jax.numpy as jnp
+    from gpyrn_tpu.datasets import load_solar
+    from gpyrn_tpu.utils.astro import keplerian_rv
+    times = chip_smoke.astro_times(load_solar()[0])
+    n_small = min(chip_smoke.ASTRO_NS)
+    out = {"params": list(chip_smoke.SOLAR_KEPLERIAN),
+           "stride": chip_smoke.ASTRO_STRIDE, "rv": {}, "grad": {}}
+    for e in chip_smoke.ASTRO_ECCENTRICITIES:
+        pars = chip_smoke.astro_params(e)
+        out["rv"][repr(e)] = {
+            str(n): np.asarray(keplerian_rv(
+                t, P=pars[0], K=pars[1], e=pars[2], w=pars[3], T=pars[4])
+            )[::1 if n == n_small else chip_smoke.ASTRO_STRIDE].tolist()
+            for n, t in times.items()}
+        t = jnp.asarray(times[n_small])
+        grad = jax.grad(lambda p: jnp.sum(keplerian_rv(
+            t, P=p[0], K=p[1], e=p[2], w=p[3], T=p[4])))(jnp.asarray(pars))
+        out["grad"][repr(e)] = np.asarray(grad).tolist()
+    return out
+
+
+def solar_section(gpyrn_tpu):
+    import jax
+    import jax.numpy as jnp
+    stride = chip_smoke.SOLAR_STRIDE
+    g = chip_smoke.solar_problem(gpyrn_tpu)
+    elbo, mu, var, n_iter = g.ELBOcalc()
+    _, mean, std, _ = g.predict(nn=chip_smoke.SOLAR_NN)
+    out = {"N": int(g.N), "stride": stride,
+           "fit": {"elbo": float(elbo), "n_iter": int(n_iter),
+                   **chip_smoke.state_summary(np.asarray(mu),
+                                              np.asarray(var), stride)},
+           "predict": {"nn": chip_smoke.SOLAR_NN,
+                       "mean": np.asarray(mean)[::stride].tolist(),
+                       "std": np.asarray(std)[::stride].tolist()}}
+    g = chip_smoke.solar_problem(gpyrn_tpu)
+    res = g.optimize_adam(n_steps=chip_smoke.ADAM_STEPS,
+                          n_sweeps=chip_smoke.GRAD_SWEEPS["headline"])
+    out["adam"] = {"n_steps": chip_smoke.ADAM_STEPS,
+                   "n_sweeps": chip_smoke.GRAD_SWEEPS["headline"],
+                   "x": np.asarray(res["x"]).tolist(),
+                   "fun": float(res["fun"]), "elbo": float(res["elbo"])}
+    g = chip_smoke.solar_problem(gpyrn_tpu)
+    eng, cfg = g.engine, chip_smoke.BATCH
+    thetas = chip_smoke.batch_thetas(g.get_parameters(include_frozen=True),
+                                     cfg["rows"], cfg["spread"], cfg["seed"])
+    t = np.asarray(g.time, dtype=float)
+
+    def one(th):
+        mu0, var0 = eng.init_mu_var(th, g.y)
+        return eng.elbo_fit(th, t, g.y, g.yerr2, mu0, var0,
+                            cfg["max_iter"])
+
+    elbo, mu, var, n_iter, conv, _ = jax.jit(jax.vmap(one))(
+        jnp.asarray(thetas))
+    rows = [chip_smoke.state_summary(np.asarray(m), np.asarray(v), stride)
+            for m, v in zip(mu, var)]
+    out["batch"] = {**cfg, "elbo": np.asarray(elbo).tolist(),
+                    "n_iter": np.asarray(n_iter).tolist(),
+                    "converged": np.asarray(conv).tolist(),
+                    "mu": [r["mu"] for r in rows],
+                    "var": [r["var"] for r in rows]}
+    return out
+
+
+def serving_section(gpyrn_tpu):
+    from gpyrn_tpu import serving
+    out = {"stride": chip_smoke.SERVE_STRIDE}
+    for key, cfg in chip_smoke.SERVE.items():
+        g = chip_smoke.headline_problem(gpyrn_tpu, N=cfg["N"])
+        if key == "headline":
+            g.ELBOcalc()
+        else:
+            mu, var = g.engine.init_mu_var(g._theta(), g.y)
+            g._mu, g._var = np.asarray(mu), np.asarray(var)
+        serve = serving.ServingPredictor(serving.export_predict(g))
+        out[key] = {**cfg, "requests": {
+            str(n): chip_smoke.serve_summary(
+                serve(chip_smoke.serve_times(g.time, n)))
+            for n in cfg["ns"]}}
+        if key == "headline":
+            serve32 = serving.ServingPredictor(
+                serving.export_predict(g, dtype=np.float32))
+            out[key]["float32"] = chip_smoke.serve_summary(serve32(
+                chip_smoke.serve_times(g.time, chip_smoke.SERVE_F32_N)
+                .astype(np.float32)))
+            out[key]["state"] = {"mu": np.asarray(g._mu).ravel().tolist(),
+                                 "var": np.asarray(g._var).ravel().tolist()}
+    return out
+
+
 def jax_hmc_draws(seed, n_chains, ndim, n_warmup, n_samples, chunk=50,
                   mass_matrix="diag", algorithm="hmc", max_depth=8):
     """The draws of ``gpyrn_tpu.inference.hmc.run_hmc`` with these
@@ -424,6 +526,13 @@ def main():
         "sweeps at N=2000, the mixed fit with fit_method='cg' there "
         "polished to the float64 fixed point, and the SVI fit at N=1000 "
         "with the subsets it drew")
+    out["_note_rv"] = (
+        "cached oracle, as _note says: the Keplerian RV workflow's "
+        "keplerian_rv values and jax.grad (astro), the solar model's "
+        "converged fit, prediction, adam steps and vmap(elbo_fit) over 13 "
+        "rows (solar), and gpyrn_tpu.serving's artifact of the headline "
+        "model at N=1000 (its converged state kept whole) and N=5000 "
+        "(serving), with the headline's float32 artifact")
     out["_command"] = COMMAND
     out.setdefault("_jax", jax.__version__)
     sections = list(fit_sections(gpyrn_tpu)) + [
@@ -440,7 +549,10 @@ def main():
         ("hmc", lambda: hmc_section(gpyrn_tpu)),
         ("multistart", lambda: multistart_section(gpyrn_tpu)),
         ("npv", lambda: npv_section(gpyrn_tpu)),
-        ("lean", lambda: lean_section(gpyrn_tpu))]
+        ("lean", lambda: lean_section(gpyrn_tpu)),
+        ("astro", lambda: astro_section(gpyrn_tpu)),
+        ("solar", lambda: solar_section(gpyrn_tpu)),
+        ("serving", lambda: serving_section(gpyrn_tpu))]
     for name, section in sections:
         if name in out:
             print(name, "kept", flush=True)

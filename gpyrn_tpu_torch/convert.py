@@ -17,7 +17,7 @@ __all__ = ["components_from_jax", "inference_from_jax"]
 
 _MEAN_CLASSES = {"Const": meanfunc.Constant, "Lin": meanfunc.Linear,
                  "Par": meanfunc.Parabola, "Cub": meanfunc.Cubic,
-                 "Sin": meanfunc.Sine}
+                 "Sin": meanfunc.Sine, "Kep": meanfunc.Keplerian}
 
 
 def _mean(m):

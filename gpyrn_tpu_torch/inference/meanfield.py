@@ -9,8 +9,11 @@ from N = ``LEAN_N`` on) / ``nELBO``, ``elbo_grad`` and
 ``optimize_adam`` (unrolled, and the implicit gradient of the converged
 ELBO), ``optimize`` (scipy), ``optimize_device`` (Nelder-Mead on the
 device over the θ-batched ELBO), ``mcmc`` (the native ensemble sampler,
-HMC and NUTS; emcee when installed), ``predict`` / ``_Prediction``, ``sample``, and
-``save`` / ``load``, over the engine of :mod:`gpyrn_tpu_torch.models.gprn`.
+HMC and NUTS; emcee when installed), ``predict`` / ``_Prediction``,
+``export_predict`` (the served posterior predictive of
+:mod:`gpyrn_tpu_torch.serving`), ``plot_prediction`` / ``plot_structure``
+(:mod:`gpyrn_tpu_torch.utils.plots`), ``sample``, and ``save`` / ``load``,
+over the engine of :mod:`gpyrn_tpu_torch.models.gprn`.
 
 The device is the card (``device="cuda"``) unless the caller asks for
 another (``device="cpu"``); it is never detected, and nothing touches
@@ -1112,6 +1115,31 @@ class inference:
             tstar = np.linspace(mi - 0.2 * tptp, ma + 0.2 * tptp, nn)
         aa, vv, bb = self._Prediction(tstar=tstar, separate=True)
         return tstar, aa, torch.sqrt(vv), bb
+
+    def export_predict(self, filename=None, **kw):
+        """Ahead-of-time export of the fitted posterior predictive for
+        serving (see :mod:`gpyrn_tpu_torch.serving`): returns the
+        ``torch.export.ExportedProgram``, or — when ``filename`` is given
+        — writes the artifact there and returns its byte count.  Keywords
+        (``device``, ``n_star``, ``dtype``) pass through to
+        ``serving.export_predict``."""
+        from gpyrn_tpu_torch import serving
+        if filename is not None:
+            return serving.save_predict(self, filename, **kw)
+        return serving.export_predict(self, **kw)
+
+    def plot_prediction(self, nn=1000, tstar=None, over=0.2, title=None):
+        """Data, posterior predictive, residuals, weights and nodes per
+        output (:func:`gpyrn_tpu_torch.utils.plots.plot_prediction`)."""
+        from gpyrn_tpu_torch.utils.plots import plot_prediction
+        return plot_prediction(self, nn=nn, tstar=tstar, over=over,
+                               title=title)
+
+    def plot_structure(self, title=None):
+        """Graphical-model sketch of the GPRN: the node → weight → output
+        network (:func:`gpyrn_tpu_torch.utils.plots.plot_structure`)."""
+        from gpyrn_tpu_torch.utils.plots import plot_structure
+        return plot_structure(self, title=title)
 
     # ------------------------------------------------------------------
     # prior samples

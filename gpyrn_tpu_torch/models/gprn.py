@@ -235,19 +235,21 @@ class Engine:
         return K.reshape(*batch, *K.shape[1:])
 
     def _mean_values(self, theta, t):
-        """The (..., p, n_t) mean functions of every row of ``theta``."""
+        """The (..., p, n_t) mean functions of every row of ``theta``: each
+        output's mean evaluated once, over all rows together (a θ batch's
+        Keplerian runs its Newton steps once, not once per row)."""
         batch, p = theta.shape[:-1], self.spec.p
         if all(s is None for s in self.spec.mean_structs):
             return torch.zeros((*batch, p, t.shape[0]), dtype=t.dtype,
                                device=t.device)
-        out = []
-        for row in theta.reshape(-1, theta.shape[-1]):
-            _, _, mean_p, _ = unpack_parameters(self.spec, row)
-            out.append(torch.stack([
-                torch.zeros(t.shape, dtype=t.dtype, device=t.device)
-                if s is None else means_mod.evaluate(s, mp, t)
-                for s, mp in zip(self.spec.mean_structs, mean_p)]))
-        return torch.stack(out).reshape(*batch, p, t.shape[0])
+        _, _, mean_p, _ = unpack_parameters(
+            self.spec, theta.reshape(-1, theta.shape[-1]))
+        rows = mean_p[0].shape[0]
+        out = torch.stack([
+            torch.zeros((rows, t.shape[0]), dtype=t.dtype, device=t.device)
+            if s is None else means_mod.evaluate(s, mp, t)
+            for s, mp in zip(self.spec.mean_structs, mean_p)], dim=1)
+        return out.reshape(*batch, p, t.shape[0])
 
     # ---- heuristic initialisation -----------------------------------------
 

@@ -48,9 +48,19 @@ anything else.  :func:`kernel_matrix_ref`, :func:`kernel_matrix_stack_ref`,
 plain PyTorch versions: the CPU path runs the first three (and autograd
 through them), and on the card only the tests and ``chip_smoke.py`` call
 them, to compare.
+
+``torch.export`` traces with fake tensors, which have no ``data_ptr()``
+for a ctypes launch, so the stack is also the custom operator
+``torch.ops.gpyrn_torch.kernel_matrix_stack`` (:func:`kernel_matrix_stack_op`):
+an opaque node of the exported graph whose CUDA implementation launches B1
+as :func:`kernel_matrix_stack_cuda` does and whose CPU implementation is
+the plain version.  ``linalg.kernel_matrix_stack`` takes it only while
+exporting (the served posterior predictive); every other path launches
+directly.
 """
 from __future__ import annotations
 
+import ast
 import ctypes
 import functools
 from typing import NamedTuple
@@ -65,7 +75,7 @@ __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_stack_ref", "kernel_matrix_stack_cuda",
            "kernel_matrix_rows_ref", "kernel_matrix_rows_cuda",
            "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda",
-           "grad_blocks", "LAUNCHES",
+           "kernel_matrix_stack_op", "grad_blocks", "LAUNCHES",
            "reset_launch_counts"]
 
 # Op codes of the postfix program.  Must equal ``enum Op`` in
@@ -177,13 +187,17 @@ def _jitter(structure, params, t, nugget, jitter_mult):
                          k0.new_full((), nugget))
 
 
+def _jittered_ref(structure, params, t, jitter):
+    r = t[:, None] - t[None, :]
+    K = _k.evaluate(structure, params, r=r)
+    return K + jitter * torch.eye(t.shape[0], dtype=t.dtype, device=t.device)
+
+
 def kernel_matrix_ref(structure, params, t, nugget, jitter_mult):
     """Plain PyTorch version of the kernel: the dense lag matrix, the
     registry formula on it, and the same jitter on the diagonal."""
-    r = t[:, None] - t[None, :]
-    K = _k.evaluate(structure, params, r=r)
-    jitter = _jitter(structure, params, t, nugget, jitter_mult)
-    return K + jitter * torch.eye(t.shape[0], dtype=t.dtype, device=t.device)
+    return _jittered_ref(structure, params, t,
+                         _jitter(structure, params, t, nugget, jitter_mult))
 
 
 def kernel_matrix_grad_ref(structure, params, t, G):
@@ -303,6 +317,27 @@ def _launch_grad(structure, params, t, G):
     return out
 
 
+def _launch_lattice(t, structures, params, jitters):
+    """The (W, S, N, N) lattice into one new buffer, one B1 launch per
+    slice: ``params[s]`` the contiguous (W, n_params_s) parameters of
+    structure s, ``jitters[s]`` its contiguous (W,) jitters."""
+    S, n = len(structures), t.shape[0]
+    W = params[0].shape[0]
+    out = torch.empty((W, S, n, n), dtype=t.dtype, device=t.device)
+    fn = _function(t.dtype)
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    size = t.element_size()
+    for s, structure in enumerate(structures):
+        program = _program_args(structure)
+        n_par = params[s].shape[1]
+        p0, j0 = params[s].data_ptr(), jitters[s].data_ptr()
+        for w in range(W):
+            _launch(fn, t, p0 + w * n_par * size, j0 + w * size,
+                    out.data_ptr() + (w * S + s) * n * n * size, n_par,
+                    program, stream)
+    return out
+
+
 class _KernelMatrixStack(torch.autograd.Function):
     """The (W, S, N, N) lattice of K_ws = kernel_s(t; params_s[w]) +
     jitter_s[w]·I: one B1 launch per slice of one buffer; in the backward
@@ -312,21 +347,9 @@ class _KernelMatrixStack(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, structures, *inputs):
-        S, n = len(structures), t.shape[0]
-        params, jitters = inputs[:S], inputs[S:]
-        W = params[0].shape[0]
-        out = torch.empty((W, S, n, n), dtype=t.dtype, device=t.device)
-        fn = _function(t.dtype)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        size = t.element_size()
-        for s, structure in enumerate(structures):
-            program = _program_args(structure)
-            n_par = params[s].shape[1]
-            p0, j0 = params[s].data_ptr(), jitters[s].data_ptr()
-            for w in range(W):
-                _launch(fn, t, p0 + w * n_par * size, j0 + w * size,
-                        out.data_ptr() + (w * S + s) * n * n * size, n_par,
-                        program, stream)
+        S = len(structures)
+        params = inputs[:S]
+        out = _launch_lattice(t, structures, params, inputs[S:])
         ctx.save_for_backward(t, *params)
         ctx.structures = structures
         return out
@@ -445,3 +468,55 @@ def kernel_matrix_grad_cuda(structure, params, t, G):
         raise ValueError(f"G must be an ({n}, {n}) tensor on t's device and "
                          f"in t's dtype")
     return _launch_grad(structure, params, t, G.contiguous())
+
+
+# ---- the custom operator of the exported program -------------------------
+
+@functools.lru_cache(maxsize=256)
+def _parse_structure(text):
+    """A structure tree from its ``repr`` (the operator's schema has no
+    nested-tuple type), parsed once per text."""
+    return ast.literal_eval(text)
+
+
+@torch.library.custom_op(
+    "gpyrn_torch::kernel_matrix_stack", mutates_args=(), device_types="cpu",
+    schema="(Tensor t, Tensor[] params, Tensor[] jitters, str[] structures)"
+           " -> Tensor")
+def _stack_op(t, params, jitters, structures):
+    """CPU: the plain version, matrix by matrix."""
+    return torch.stack([
+        _jittered_ref(_parse_structure(s), p, t, j)
+        for s, p, j in zip(structures, params, jitters)])
+
+
+@_stack_op.register_kernel("cuda")
+def _stack_op_cuda(t, params, jitters, structures):
+    """CUDA: one B1 launch per matrix into one (B, N, N) buffer, as
+    :func:`kernel_matrix_stack_cuda`; raises on what B1 does not take."""
+    parsed = tuple(_parse_structure(s) for s in structures)
+    _count_check(parsed, params)
+    for s, p in zip(parsed, params):
+        _check(s, p, t)
+    return _launch_lattice(t, parsed, [p[None] for p in params],
+                           [j.reshape(1).contiguous() for j in jitters])[0]
+
+
+@_stack_op.register_fake
+def _stack_op_fake(t, params, jitters, structures):
+    n = t.shape[0]
+    return t.new_empty((len(params), n, n))
+
+
+def kernel_matrix_stack_op(structures, params, t, nugget, jitter_mult):
+    """:func:`kernel_matrix_stack_cuda` (on a CUDA tensor) or
+    :func:`kernel_matrix_stack_ref` (on a CPU tensor) through the custom
+    operator ``gpyrn_torch::kernel_matrix_stack``, with the jitters
+    computed beside it by tensor operations: the form ``torch.export``
+    can trace.  No gradient."""
+    structures = tuple(structures)
+    _count_check(structures, params)
+    jitters = [_jitter(s, p, t, float(nugget), float(jitter_mult))
+               for s, p in zip(structures, params)]
+    return torch.ops.gpyrn_torch.kernel_matrix_stack(
+        t, list(params), jitters, [repr(s) for s in structures])

@@ -21,7 +21,10 @@ on every device, exactly as in the JAX package.  :func:`kernel_matrix_stack`
 is the same dispatch for a list of structures: when the kernel supports
 them all, it writes them into one ``(B, N, N)`` tensor without a copy;
 :func:`kernel_matrix_rows` does it for W rows of such a list, one
-``(W, S, N, N)`` tensor.
+``(W, S, N, N)`` tensor.  While ``torch.export`` traces (the served
+posterior predictive), the stack goes through the custom operator
+``gpyrn_torch::kernel_matrix_stack`` on either device, so that the
+exported program holds B1 as one node.
 """
 from __future__ import annotations
 
@@ -105,6 +108,10 @@ def kernel_matrix_stack(structures, params, t, nugget=TRAIN_NUGGET,
     structures = tuple(structures)
     if all(_ck.cuda_supported(s) for s in structures):
         params = [_params(p, t) for p in params]
+        if torch.compiler.is_exporting():
+            return _ck.kernel_matrix_stack_op(
+                structures, [p.contiguous() for p in params], t.contiguous(),
+                nugget, jitter_mult)
         if t.is_cuda:
             return _ck.kernel_matrix_stack_cuda(
                 structures, [p.contiguous() for p in params], t.contiguous(),

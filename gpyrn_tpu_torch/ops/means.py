@@ -7,8 +7,14 @@ object shell carrying the reference API (``pars``, prefix-consuming
 
 ``MultiConstant`` carries its per-instrument index data (obsid / time
 bins) inside its structure extras, as in the JAX package.  The Keplerian
-mean is not here yet: it needs the Kepler-equation solver of
-``gpyrn_tpu/utils/astro.py``, which is still to be ported.
+mean (tag ``"Kep"``) is the radial-velocity curve of
+:func:`gpyrn_tpu_torch.utils.astro.keplerian_rv`, differentiable in its
+five parameters through every Newton step of Kepler's equation.
+
+Every mean takes parameters of shape (..., n_params) and returns values of
+shape (..., n_t): the leading dimensions are rows of a θ batch, evaluated
+in one pass (elementwise, so each row's values are those of its own
+evaluation).
 """
 from __future__ import annotations
 
@@ -18,10 +24,12 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from gpyrn_tpu_torch.utils.astro import keplerian_rv
+
 __all__ = [
     "meanFunction", "Sum", "Product",
     "Constant", "MultiConstant", "Linear", "Parabola", "Cubic", "Sine",
-    "evaluate", "n_params",
+    "Keplerian", "evaluate", "n_params",
 ]
 
 # tag -> (n_params or None for variable, fn(params, t, extras))
@@ -44,49 +52,61 @@ def n_params(structure) -> int:
 
 
 def evaluate(structure, params, t):
-    """Evaluate a mean structure at times ``t`` (a tensor)."""
+    """Evaluate a mean structure at times ``t`` (a 1-D tensor) for
+    parameters of shape (..., n_params): values of shape (..., n_t)."""
     tag = structure[0]
     if tag == "+":
         k = n_params(structure[1])
-        return (evaluate(structure[1], params[:k], t) +
-                evaluate(structure[2], params[k:], t))
+        return (evaluate(structure[1], params[..., :k], t) +
+                evaluate(structure[2], params[..., k:], t))
     if tag == "*":
         k = n_params(structure[1])
-        return (evaluate(structure[1], params[:k], t) *
-                evaluate(structure[2], params[k:], t))
+        return (evaluate(structure[1], params[..., :k], t) *
+                evaluate(structure[2], params[..., k:], t))
     if tag not in _REGISTRY:
         raise NotImplementedError(f"mean {tag!r} is not ported yet")
     _, fn = _REGISTRY[tag]
     return fn(params, t, structure[1:])
 
 
+def _par(p, i):
+    """Parameter ``i`` of every row, shaped to broadcast against t."""
+    return p[..., i:i + 1]
+
+
 def _constant(p, t, extras):
-    return torch.zeros_like(t) + p[0]
+    return torch.zeros_like(t) + _par(p, 0)
 
 
 def _linear(p, t, extras):
     # slope * (t - mean(t)) + intercept — the mean of the *evaluation*
     # times, as in the reference
-    return p[0] * (t - torch.mean(t)) + p[1]
+    return _par(p, 0) * (t - torch.mean(t)) + _par(p, 1)
 
 
-def _polyval(p, t):
-    out = torch.zeros_like(t) + p[0]
-    for i in range(1, len(p)):
-        out = out * t + p[i]
+def _polyval(p, t, n):
+    out = torch.zeros_like(t) + _par(p, 0)
+    for i in range(1, n):
+        out = out * t + _par(p, i)
     return out
 
 
 def _parabola(p, t, extras):
-    return _polyval([p[0], p[1], p[2]], t)
+    return _polyval(p, t, 3)
 
 
 def _cubic(p, t, extras):
-    return _polyval([p[0], p[1], p[2], p[3]], t)
+    return _polyval(p, t, 4)
 
 
 def _sine(p, t, extras):
-    return p[0] * torch.sin((2 * math.pi * t / p[1]) + p[2])
+    return _par(p, 0) * torch.sin((2 * math.pi * t / _par(p, 1)) +
+                                  _par(p, 2))
+
+
+def _keplerian_mean(p, t, extras):
+    return keplerian_rv(t, P=_par(p, 0), K=_par(p, 1), e=_par(p, 2),
+                        w=_par(p, 3), T=_par(p, 4))
 
 
 def _multiconstant(p, t, extras):
@@ -94,19 +114,23 @@ def _multiconstant(p, t, extras):
 
     extras = (parsize, train_size, ii, time_bins) with ``ii`` the
     0-based instrument index per training observation and ``time_bins``
-    the bin edges that assign instruments to new times."""
+    the bin edges that assign instruments to new times.  As in the JAX
+    package, ``ii`` serves times of the training size only where that
+    size is a number: a symbolic size (``torch.export``) takes the bins,
+    as a JAX export with a symbolic dimension does."""
     parsize, train_size, ii, time_bins = extras
-    offsets = torch.cat([p[:-1], torch.zeros(1, dtype=p.dtype,
-                                             device=p.device)])
-    c = p[-1]
+    offsets = torch.cat([p[..., :-1], torch.zeros(
+        (*p.shape[:-1], 1), dtype=p.dtype, device=p.device)], dim=-1)
+    c = p[..., -1:]
     t = torch.atleast_1d(t)
-    if t.shape[0] == train_size:
+    n = t.shape[0]
+    if not isinstance(n, torch.SymInt) and n == train_size:
         idx = torch.as_tensor(ii, dtype=torch.int64, device=t.device)
     else:
         # numpy's digitize(x, bins) is bucketize(x, bins, right=True)
         bins = torch.as_tensor(time_bins, dtype=t.dtype, device=t.device)
         idx = torch.bucketize(t, bins, right=True) - 1
-    return torch.zeros_like(t) + c + offsets[idx]
+    return torch.zeros_like(t) + c + offsets[..., idx]
 
 
 _register("Const", 1, _constant)
@@ -114,6 +138,7 @@ _register("Lin", 2, _linear)
 _register("Par", 3, _parabola)
 _register("Cub", 4, _cubic)
 _register("Sin", 3, _sine)
+_register("Kep", 5, _keplerian_mean)
 _register("MultiConst", None, _multiconstant)
 
 
@@ -311,3 +336,15 @@ class Sine(meanFunction):
 
     def __init__(self, amplitude: float, period: float, phase: float):
         super().__init__(amplitude, period, phase)
+
+
+class Keplerian(meanFunction):
+    """Keplerian radial-velocity mean function: period P, semi-amplitude
+    K, eccentricity e, argument of periastron w and time of periastron
+    Tp (:func:`gpyrn_tpu_torch.utils.astro.keplerian_rv`)."""
+    _param_names = ("P", "K", "e", "w", "Tp")
+    _parsize = 5
+    _tag = "Kep"
+
+    def __init__(self, P: float, K: float, e: float, w: float, Tp: float):
+        super().__init__(P, K, e, w, Tp)

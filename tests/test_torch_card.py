@@ -686,3 +686,50 @@ def test_batched_solve_past_magmas_limit(cuda):
         torch.testing.assert_close(
             x[i], torch.cholesky_solve(b[i][:, None], L[i])[:, 0],
             rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_custom_op_equals_the_stack_kernel(dtype, cuda):
+    """``gpyrn_torch::kernel_matrix_stack`` (the exported program's B1)
+    launches B1 as ``kernel_matrix_stack_cuda`` does: the same bits, one
+    launch per matrix; and it agrees with the plain version to B1's
+    tolerances (rtol, atol of max |ref|)."""
+    structures = [("QP",), ("SE",), ("+", ("SE",), ("M32",))]
+    pars = [(1.1, 20.0, 13.0, 0.6), (1.2, 8.0), (1.0, 8.0, 0.5, 3.0)]
+    t = torch.tensor(_times(1000), dtype=dtype, device=cuda)
+    params = [torch.tensor(p, dtype=dtype, device=cuda) for p in pars]
+    for mult in (tlin.F32_JITTER_MULT, 0.0):
+        before = ck.LAUNCHES["kernel_matrix"]
+        got = ck.kernel_matrix_stack_op(structures, params, t, 1e-6, mult)
+        assert ck.LAUNCHES["kernel_matrix"] == before + 3
+        ref = ck.kernel_matrix_stack_cuda(structures, params, t, 1e-6, mult)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        plain = ck.kernel_matrix_stack_ref(structures, params, t, 1e-6, mult)
+        rtol, atol = ((1e-12, 1e-14) if dtype == torch.float64
+                      else (2e-6, 1e-6))
+        assert bool(((got - plain).abs() <= atol * plain.abs().amax()
+                     + rtol * plain.abs()).all())
+
+
+@pytest.mark.cuda
+def test_artifact_exported_on_card_equals_predict(cuda, tmp_path):
+    """An artifact exported on the card serves there: B1 launches in every
+    request (one per matrix of the lattice), and the outputs equal the
+    in-process predict."""
+    from gpyrn_tpu_torch import serving
+    g = _headline_small(cuda)
+    g.ELBOcalc()
+    path = str(tmp_path / "predict.pt2")
+    assert g.export_predict(path) > 0
+    serve = serving.load_predict(path)
+    assert serve.device.type == "cuda"
+    for n in (1, 64, 300):
+        tstar = np.linspace(-20.0, 120.0, n)
+        before = ck.LAUNCHES["kernel_matrix"]
+        out = serve(tstar)
+        assert ck.LAUNCHES["kernel_matrix"] == before + 4
+        mean, var, (npred, wpred) = g._Prediction(tstar=tstar, separate=True)
+        for got, ref in zip(out, (mean, var, npred, wpred)):
+            torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)

@@ -161,6 +161,7 @@ MEANS = {
     "Parabola": lambda m: m.Parabola(0.01, 0.2, -0.5),
     "Cubic": lambda m: m.Cubic(1e-3, -0.02, 0.2, 1.5),
     "Sine": lambda m: m.Sine(0.8, 11.0, 0.3),
+    "Keplerian": lambda m: m.Keplerian(17.0, 1.3, 0.3, 0.5, 2.0),
     "MultiConstant": _multiconst,
     "Sum": lambda m: m.Linear(0.05, -0.3) + m.Sine(0.8, 11.0, 0.3),
     "Product": lambda m: m.Constant(0.7) * m.Cubic(1e-3, -0.02, 0.2, 1.5),
@@ -195,6 +196,18 @@ def test_mean_set_parameters_chains():
 
 
 def test_keplerian_mean_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tm.evaluate(("Kep",), torch.ones(5, dtype=torch.float64),
-                    torch.zeros(3, dtype=torch.float64))
+    """The name is kept from when the port raised for the tag; the tag is
+    ported now: ``("Kep",)`` evaluates as the JAX registry does, for one
+    parameter vector and for a (rows, 5) batch of them, row by row."""
+    rng = np.random.default_rng(8)
+    t = np.sort(rng.uniform(0, 50, 29))
+    pars = np.c_[rng.uniform(10, 30, 3), rng.uniform(0.5, 2, 3),
+                 [0.0, 0.3, 0.9], rng.uniform(0, 6, 3), rng.uniform(0, 5, 3)]
+    got = tm.evaluate(("Kep",), torch.tensor(pars), torch.tensor(t))
+    assert got.shape == (3, 29)
+    for row, g in zip(pars, got):
+        ref = np.asarray(jm.evaluate(("Kep",), jnp.asarray(row),
+                                     jnp.asarray(t)))
+        np.testing.assert_allclose(g.numpy(), ref, rtol=RTOL, atol=1e-14)
+        one = tm.evaluate(("Kep",), torch.tensor(row), torch.tensor(t))
+        assert torch.equal(one, g)

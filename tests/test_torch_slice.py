@@ -85,12 +85,24 @@ def test_transferred_state_predicts_like_jax(flagship):
 
 
 def test_components_from_jax_reject_unported_means(flagship):
+    """The name is kept from when the Keplerian mean was not ported: a
+    JAX ``Keplerian`` now converts to the port's (alone and inside a
+    ``Sum``), and a tag the port lacks still raises."""
     import gpyrn_tpu as gj
+    se = gj.covfunc.SquaredExponential(1.0, 2.0)
+    kep = gj.meanfunc.Keplerian(10.0, 1.0, 0.1, 0.2, 0.0)
+    means = [kep, kep + gj.meanfunc.Constant(0.3)]
+    _, _, m_t, _ = components_from_jax([se], [se, se], means, [0.1, 0.1])
+    for a, b in zip(m_t, means):
+        assert a.structure == b.structure
+        np.testing.assert_array_equal(a.pars, b.pars)
+    assert isinstance(m_t[0], gt.meanfunc.Keplerian)
+
+    class Unknown:
+        structure = ("Unknown",)
+        pars = np.ones(1)
     with pytest.raises(NotImplementedError):
-        components_from_jax([gj.covfunc.SquaredExponential(1.0, 2.0)],
-                            [gj.covfunc.SquaredExponential(1.0, 2.0)],
-                            [gj.meanfunc.Keplerian(10.0, 1.0, 0.1, 0.2,
-                                                   0.0)], [0.1])
+        components_from_jax([se], [se], [Unknown()], [0.1])
 
 
 def _small(device="cpu"):
@@ -180,6 +192,8 @@ def test_imports_and_fits_without_jax():
                                                neldermead, priors)
         from gpyrn_tpu_torch.models import cg_fit, iterative, svi
         from gpyrn_tpu_torch.ops import iterative as ops_iterative
+        from gpyrn_tpu_torch import datasets, serving
+        from gpyrn_tpu_torch.utils import astro, plots, profiling
         t = np.linspace(0, 20, 12)
         g = gt.inference(1, t, np.sin(t), np.full(12, 0.1), device="cpu")
         g.set_components(gt.covfunc.SquaredExponential(1.0, 5.0),
@@ -190,6 +204,9 @@ def test_imports_and_fits_without_jax():
         g.fit_method = 'cg'
         assert np.isfinite(g.ELBOcalc(precision='mixed', max_iter=3)[0])
         assert iterative.predict_iterative(g, nn=5)[1].shape == (5, 1)
+        time, data = datasets.load_solar()
+        assert time.shape == (497,) and len(data) == 4
+        assert np.isfinite(astro.keplerian_rv(time, P=100.0, e=0.3)).all()
         assert not any(m.split(".")[0] in ("jax", "gpyrn_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
