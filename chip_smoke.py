@@ -152,11 +152,33 @@ ends non-zero:
 32. profiling: ``utils.profiling.trace`` of a served request writes a
     trace that holds B1 among its device records; the ``StageTimer`` of
     phases 29–31.
+33. the multi-device layer, four gloo ranks sharing the card
+    (``parallel.mesh.spawn``; the JAX package's ``dryrun_multichip``):
+    on a (dp=2, lat=2) mesh a 3-step ``multistart_optimize`` with the
+    weight lattice split, the lattice-split ``fit_state`` and one ELBO
+    sweep; on (4, 1) ``batch_elbo`` and the ensemble's device chain; on
+    (1, lat=4) the panel ``elbo_fit_panel`` at N=192 and
+    ``elbo_refine_panel`` of the headline model at N=4096, and
+    ``cg_solve_sharded``; each against the unsharded call made afterwards
+    (and the panel at N=4096 against the cached JAX value); each rank's
+    slab of the headline model's four kernel matrices (QP node, three SE
+    weights) from B1's slab entry against the plain version and against
+    B1's full-matrix rows.  The ranks time-slice the card: agreement only;
+34. full width on a one-rank NCCL mesh: ``elbo_refine_panel`` of the
+    headline model at N=20,000 (3 sweeps from the state of one lean
+    sweep) against ``elbo_refine_lean``, s/sweep, peak GiB, slab
+    launches; ``cg_solve_sharded`` at N=50,000 in float32 against
+    ``ops.iterative.cg_solve``; the whole padded slab (20,224 rows, the
+    shape the path launches) of the QP node and of an SE weight against
+    the plain version and B1's full-matrix rows; the slab entry's time
+    on a 256-row slab at N=4096 and 20,000 and on the whole slab at
+    20,000, against its plain version and its bound.
 
 The launch counts are set to 0 before each path (phases 3–5, phases
 6–7, phases 11–12, phases 13–15, phases 17–20, phases 21–24, phases
-25–28, phases 29–30; phase 31's are counted in its serving process) and
-read after it.  The
+25–28, phases 29–30; phase 31's are counted in its serving process,
+phase 33's and 34's in their ranks, started by a fresh process,
+``chip_smoke.py --parallel``) and read after it.  The
 last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -469,6 +491,54 @@ SERVE_RTOL = {"predict": 1e-12, "jax": 1e-9, "float32": 5e-4}
 # the served models' own structures and parameters against the plain
 # version, at B1's tolerances of phase 8 (rtol, atol of max |ref|)
 STACK_OP_TOL = {"float64": (1e-12, 1e-14), "float32": (2e-6, 1e-6)}
+
+# the multi-device layer (phases 33-34).  33: four gloo ranks sharing the
+# card (``parallel.mesh.spawn``), the port's version of the JAX package's
+# dryrun_multichip (__graft_entry__.py): on a (dp=2, lat=2) mesh a 3-step
+# multistart population of the flagship model at N=256 with its weight
+# lattice split over lat, the lattice-split fit_state (60 sweeps, tol
+# 1e-10) and one ELBO sweep from its state, batch_elbo over 8 rows and the
+# ensemble's device chain (8 walkers, two free parameters, 8 steps) on a
+# (4, 1) mesh; on a (1, lat=4) mesh the panel elbo_fit_panel at N=192
+# (block 16; the dryrun's QuasiPeriodic node and SE weight, q=1 p=1,
+# default_rng(11)), elbo_refine_panel of the headline model at N=4096
+# (block 256, one sweep) against the single-device lean engine and the
+# cached JAX value, and cg_solve_sharded at N=192 against cg_solve.
+# Ranks that share one card time-slice it: this phase checks agreement
+# and prints its wall only.  34: one NCCL rank on the card, the headline
+# model at N=20,000 (Np = 20,224): elbo_refine_panel for 3 sweeps from
+# the state of one elbo_refine_lean sweep, against elbo_refine_lean from
+# that state; then cg_solve_sharded on phase 26's float32 system at
+# N=50,000 against ops.iterative.cg_solve with the same Jacobi
+# preconditioner
+PARALLEL_ARG = "--parallel"
+PARALLEL_RANKS = 4
+PARALLEL_TIMEOUT = 600.0
+LATTICE = {"N": 256, "max_iter": 60, "tol": 1e-10}
+MULTISTART_MESH = {"n_restarts": 2, "n_steps": 3, "n_sweeps": 3}
+EVIDENCE_MESH_ROWS = 8
+CHAIN_MESH = {"nwalkers": 8, "niter": 8, "elbo_max_iter": 30, "seed": 5,
+              "check_every": 4}
+PANEL_FIT = {"N": 192, "block": 16, "max_iter": 100}
+PANEL_N, PANEL_BLOCK, PANEL_SWEEPS = 4096, 256, 1
+CG_MESH = {"N": 192, "nugget": 1e-2, "tol": 1e-10, "maxiter": 400}
+PANEL_WIDE = {"N": 20000, "block": 256, "sweeps": 3}
+CG_WIDE = {"tol": 1e-4, "maxiter": 50, "chunk": 2048}
+# bars: lat-split against unsharded (the JAX package's dryrun: state atol
+# 1e-10, ELBO relative 1e-10, equal sweeps); dp-split against unsharded
+# (tests/test_sharding.py, test_sharding_samplers.py: batch_elbo relative
+# 1e-8, chain rtol 1e-6 / atol 1e-7, log-probs 1e-6); the panel fits
+# (the dryrun: relative 1e-8 at N=192; tests/test_panel.py at N=4096:
+# ELBO relative 1e-8, state 1e-7·(1 + max)); at N=20,000 against the
+# lean engine, ELBO relative 1e-9 and state 1e-8·(1 + max); CG
+# (tests/test_iterative_sharded.py: rtol 1e-5, atol 1e-8)
+LATTICE_ATOL, LATTICE_ELBO_RTOL = 1e-10, 1e-10
+EVIDENCE_MESH_RTOL = 1e-8
+CHAIN_MESH_TOL = {"chain": (1e-6, 1e-7), "log_prob": (1e-6, 1e-6)}
+PANEL_FIT_RTOL = 1e-8
+PANEL_RTOL = {"elbo": 1e-8, "state": 1e-7}
+PANEL_WIDE_RTOL = {"elbo": 1e-9, "state": 1e-8}
+CG_MESH_TOL = (1e-5, 1e-8)
 
 
 def solar_problem(pkg, **kw):
@@ -3416,6 +3486,466 @@ def phase_profiling(torch, timer, path, time):
           flush=True)
 
 
+# ---- the multi-device layer (phases 33-34) ------------------------------
+
+def panel_fit_problem(pkg, **kw):
+    """Phase 33's panel elbo_fit case (the JAX package's dryrun_multichip
+    N=192 case): a QuasiPeriodic node and an SE weight, q=1 p=1."""
+    rng = np.random.default_rng(11)
+    N = PANEL_FIT["N"]
+    t = np.sort(rng.uniform(0, 100, N))
+    y = np.sin(2 * np.pi * t / 31) + 0.05 * rng.standard_normal(N)
+    g = pkg.inference(1, t, y, np.full(N, 0.05), **kw)
+    g.set_components(pkg.covfunc.QuasiPeriodic(1., 40., 31., .7),
+                     pkg.covfunc.SquaredExponential(1., 50.), [None], [0.05])
+    return g
+
+
+def cg_mesh_system(torch):
+    """Phase 33's distributed CG case (the dryrun's): the N=192 panel
+    model's times and node kernel, then a right-hand side and a diagonal
+    from the same generator, float64 on the card."""
+    import gpyrn_tpu_torch as pkg
+    rng = np.random.default_rng(11)
+    N = CG_MESH["N"]
+    t = np.sort(rng.uniform(0, 100, N))
+    rng.standard_normal(N)                  # the model's noise
+    b, d = rng.standard_normal(N), 0.3 + rng.random(N)
+    k = pkg.covfunc.QuasiPeriodic(1., 40., 31., .7)
+    return (k.structure, *(torch.tensor(np.asarray(a, dtype=float),
+                                        device="cuda")
+                           for a in (k.core_params(), t, b, d)))
+
+
+def chain_priors(g, pr):
+    """The device chain's priors of phase 33: the node's first two
+    parameters free (log-normal, width PRIOR_WIDTH), the rest frozen by
+    ``vars=``."""
+    names = list(g.parameters_dict)[:2]
+    return names, {n: pr.LogNormal(float(np.log(g.parameters_dict[n])),
+                                   PRIOR_WIDTH) for n in names}
+
+
+def _host_np(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+# B1's slab entry against its plain version: phase 8's float64 tolerances
+SLAB_RTOL, SLAB_ATOL_REL, SLAB_JITTER = 1e-12, 1e-14, 1e-6
+# the plain version of a full-width slab is built this many rows at a time
+SLAB_REF_CHUNK = 2048
+
+
+def _slab_against_plain(torch, ck, kernel, t, n_pad, r0, n_rows):
+    """One slab of ``kernel``'s matrix over ``t`` (rows [r0, r0 + n_rows)
+    of the n_pad-wide padded matrix, B1's slab entry) against its plain
+    version, built SLAB_REF_CHUNK rows at a time, and its rows inside N
+    bit for bit against B1's full matrix.  Comparison launches."""
+    s, p = kernel.structure, t.new_tensor(kernel.core_params())
+    N = t.shape[0]
+    jit = torch.tensor(SLAB_JITTER, dtype=t.dtype, device=t.device)
+    got = ck.kernel_matrix_slab_cuda(s, p, t, n_pad, r0, n_rows, jit)
+    err, ok = 0.0, True
+    for c in range(0, n_rows, SLAB_REF_CHUNK):
+        n = min(SLAB_REF_CHUNK, n_rows - c)
+        ref = ck.kernel_matrix_slab_ref(s, p, t, n_pad, r0 + c, n, jit)
+        part = got[c:c + n]
+        err = max(err, float((part - ref).abs().max()))
+        ok &= bool(torch.allclose(part, ref, rtol=SLAB_RTOL,
+                                  atol=SLAB_ATOL_REL
+                                  * float(ref.abs().max())))
+        del ref
+    rows = max(0, min(r0 + n_rows, N) - r0)
+    full = ck.kernel_matrix_cuda(s, p, t, SLAB_JITTER, 0.0)
+    bits = bool(torch.equal(got[:rows, :N], full[r0:r0 + rows]))
+    del got, full
+    torch.cuda.empty_cache()
+    return {"structure": repr(s), "rows": (r0, r0 + n_rows),
+            "n_pad": n_pad, "max_abs_err": err, "within_tol": ok,
+            "bits_equal_b1_rows": bits}
+
+
+def slab_check(torch, ck, rank, n_ranks):
+    """This rank's slab of each of the headline model's four kernel
+    matrices at PANEL_N (the QP node, the three SE weights), as
+    ``_slab_against_plain``.  After the path's counts are read."""
+    g = headline_problem(__import__("gpyrn_tpu_torch"), N=PANEL_N,
+                         device="cuda")
+    t = g._tensor(g.time)
+    Nl = PANEL_N // n_ranks
+    recs = [_slab_against_plain(torch, ck, k, t, PANEL_N, rank * Nl, Nl)
+            for k in (*g.nodes, *g.weights)]
+    return {"max_abs_err": max(r["max_abs_err"] for r in recs),
+            "within_tol": all(r["within_tol"] for r in recs),
+            "bits_equal_b1_rows": all(r["bits_equal_b1_rows"]
+                                      for r in recs),
+            "structures": len(recs)}
+
+
+def parallel_rank():
+    """Phase 33 in one of the PARALLEL_RANKS gloo ranks sharing the card:
+    the parallel path with the launch counts set to 0 before it and read
+    after it, then this rank's slab against its plain version."""
+    import torch
+    import torch.distributed as dist
+    import gpyrn_tpu_torch as pkg
+    from gpyrn_tpu_torch.inference import priors as pr
+    from gpyrn_tpu_torch.inference.evidence import batch_elbo
+    from gpyrn_tpu_torch.ops import cuda_kernels as ck
+    from gpyrn_tpu_torch.parallel import (cg_solve_sharded, make_panel_engine,
+                                          multistart_optimize)
+    from gpyrn_tpu_torch.parallel import mesh as pm
+    mesh22 = pm.make_mesh(shape=(2, 2))
+    mesh41 = pm.make_mesh(shape=(PARALLEL_RANKS, 1))
+    mesh14 = pm.make_mesh(shape=(1, PARALLEL_RANKS))
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    out = {}
+    g = flagship_problem(pkg, N=LATTICE["N"], device="cuda")
+    g.lattice_axis = pm.LAT_AXIS
+    with pm.use_mesh(mesh22):
+        res = multistart_optimize(g, mesh=mesh22, **MULTISTART_MESH)
+        out["multistart"] = {k: res[k] for k in ("elbo", "restart_elbos",
+                                                 "winner")}
+        g = flagship_problem(pkg, N=LATTICE["N"], device="cuda")
+        g.lattice_axis = pm.LAT_AXIS
+        args = _start(torch, g, torch.float64)
+        mu, var, it, _ = g.engine.fit_state(*args, LATTICE["max_iter"],
+                                            LATTICE["tol"])
+        e, _, _ = g.engine.elbo_refine(*args[:4], mu, var, 1)
+        out["lattice"] = {"mu": mu, "var": var, "it": it, "elbo": e}
+    g = headline_problem(pkg, N=LATTICE["N"], device="cuda")
+    thetas = batch_thetas(g.get_parameters(), EVIDENCE_MESH_ROWS, 0.1, 0)
+    out["batch_elbo"] = batch_elbo(g, thetas, max_iter=30, mesh=mesh41)
+    names, priors = chain_priors(g, pr)
+    chain = g.mcmc(priors, p0=np.array([g.parameters_dict[n] for n in names]),
+                   vars=names, mesh=mesh41, **CHAIN_MESH)
+    out["chain"] = {"chain": chain.chain, "log_prob": chain.log_prob}
+    panel = 0
+    g = panel_fit_problem(pkg, device="cuda")
+    pe = make_panel_engine(g.engine.spec, mesh14, block=PANEL_FIT["block"])
+    before = ck.LAUNCHES["kernel_matrix"]
+    e, _, _, it, done = pe.elbo_fit_panel(*_start(torch, g, torch.float64),
+                                          PANEL_FIT["max_iter"])
+    panel += ck.LAUNCHES["kernel_matrix"] - before
+    out["panel_fit"] = {"elbo": e, "it": it, "done": done}
+    g = headline_problem(pkg, N=PANEL_N, device="cuda")
+    pe = make_panel_engine(g.engine.spec, mesh14, block=PANEL_BLOCK)
+    before = ck.LAUNCHES["kernel_matrix"]
+    e, mu, var = pe.elbo_refine_panel(*_start(torch, g, torch.float64),
+                                      PANEL_SWEEPS)
+    panel += ck.LAUNCHES["kernel_matrix"] - before
+    out["panel"] = {"elbo": e, "mu": mu, "var": var, "dims": tuple(pe.dims)}
+    s, pars, t, b, d = cg_mesh_system(torch)
+    x, it = cg_solve_sharded(s, pars, t, b, mesh41, d_add=d,
+                             nugget=CG_MESH["nugget"], tol=CG_MESH["tol"],
+                             maxiter=CG_MESH["maxiter"])
+    out["cg"] = {"x": x, "it": it}
+    torch.cuda.synchronize()
+    out = {k: {kk: _host_np(vv) for kk, vv in v.items()}
+           if isinstance(v, dict) else _host_np(v) for k, v in out.items()}
+    out.update(rank=dist.get_rank(), launches=dict(ck.LAUNCHES),
+               slab_launches=panel, wall=time.perf_counter() - t0,
+               slab=slab_check(torch, ck, dist.get_rank(), PARALLEL_RANKS))
+    return out
+
+
+def phase_parallel_ranks(torch, pkg):
+    """33: the parallel path over PARALLEL_RANKS gloo ranks sharing the
+    card, against the unsharded calls made here afterwards (comparison
+    launches) and the cached JAX value."""
+    from gpyrn_tpu_torch.inference import priors as pr
+    from gpyrn_tpu_torch.inference.evidence import batch_elbo
+    from gpyrn_tpu_torch.ops.iterative import cg_solve, kernel_matvec
+    from gpyrn_tpu_torch.parallel import multistart_optimize
+    from gpyrn_tpu_torch.parallel.mesh import spawn
+    with open(ORACLE) as f:
+        ref_jax = json.load(f)["parallel"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, PARALLEL_RANKS, "gloo", "cuda",
+                  timeout=PARALLEL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    r = ranks[0]
+    print(f"{PARALLEL_RANKS} gloo ranks on one card: {wall:.1f} s in all "
+          f"(the ranks' own path {max(x['wall'] for x in ranks):.1f} s); "
+          f"launches per rank {[x['launches'] for x in ranks]}, slab "
+          f"launches per rank {[x['slab_launches'] for x in ranks]}",
+          flush=True)
+    checks = []
+    for x in ranks[1:]:
+        same = all(np.array_equal(np.asarray(x[k][kk]), np.asarray(r[k][kk]))
+                   for k in ("lattice", "panel", "cg", "chain")
+                   for kk in r[k])
+        checks.append((f"rank {x['rank']} replicates rank 0", same, ""))
+    for x in ranks:
+        checks.append((f"rank {x['rank']} launched B1's slab entry",
+                       x["slab_launches"] > 0, f"{x['slab_launches']}"))
+        checks.append((f"rank {x['rank']} slabs of the "
+                       f"{x['slab']['structures']} kernels vs plain "
+                       "(max abs err)",
+                       x["slab"]["within_tol"],
+                       f"{x['slab']['max_abs_err']:.3e}"))
+        print(f"rank {x['rank']} slab bit-equal to B1's full-matrix rows: "
+              f"{x['slab']['bits_equal_b1_rows']}", flush=True)
+    # the unsharded calls
+    g = flagship_problem(pkg, N=LATTICE["N"], device="cuda")
+    ms = multistart_optimize(g, **MULTISTART_MESH)
+    err = float(np.max(np.abs(r["multistart"]["restart_elbos"]
+                              - ms["restart_elbos"])
+                       / np.abs(ms["restart_elbos"])))
+    checks.append(("multistart (2, 2) vs unsharded, restart ELBOs",
+                   err <= 1e-8 and np.all(np.isfinite(ms["restart_elbos"])),
+                   f"rel {err:.3e}"))
+    g = flagship_problem(pkg, N=LATTICE["N"], device="cuda")
+    args = _start(torch, g, torch.float64)
+    mu, var, it, _ = g.engine.fit_state(*args, LATTICE["max_iter"],
+                                        LATTICE["tol"])
+    e, _, _ = g.engine.elbo_refine(*args[:4], mu, var, 1)
+    lat = r["lattice"]
+    for key, ref in (("mu", mu), ("var", var)):
+        err = float(np.max(np.abs(lat[key] - ref.cpu().numpy())))
+        checks.append((f"lat-split fit_state {key} vs unsharded",
+                       err <= LATTICE_ATOL and int(lat["it"]) == it,
+                       f"max abs {err:.3e}, sweeps {int(lat['it'])} / {it}"))
+    checks.append(("lat-split ELBO vs unsharded",
+                   _rel(float(lat["elbo"]), float(e)) <= LATTICE_ELBO_RTOL,
+                   f"rel {_rel(float(lat['elbo']), float(e)):.3e}"))
+    g = headline_problem(pkg, N=LATTICE["N"], device="cuda")
+    ref = batch_elbo(g, batch_thetas(g.get_parameters(), EVIDENCE_MESH_ROWS,
+                                     0.1, 0), max_iter=30)
+    err = float(np.max(np.abs(r["batch_elbo"] - ref) / np.abs(ref)))
+    checks.append(("batch_elbo (4, 1) vs unsharded",
+                   err <= EVIDENCE_MESH_RTOL, f"rel {err:.3e}"))
+    names, priors = chain_priors(g, pr)
+    chain = g.mcmc(priors, p0=np.array([g.parameters_dict[n] for n in names]),
+                   vars=names, **CHAIN_MESH)
+    for key, got in (("chain", chain.chain), ("log_prob", chain.log_prob)):
+        rtol, atol = CHAIN_MESH_TOL[key]
+        ok = np.allclose(r["chain"][key], got, rtol=rtol, atol=atol)
+        checks.append((f"device chain (4, 1) vs unsharded, {key}", ok,
+                       f"max abs {np.max(np.abs(r['chain'][key] - got)):.3e}"))
+    g = panel_fit_problem(pkg, device="cuda")
+    e, _, _, it, _, _ = g.engine.elbo_fit(*_start(torch, g, torch.float64),
+                                          PANEL_FIT["max_iter"])
+    pf = r["panel_fit"]
+    rel = _rel(float(pf["elbo"]), float(e))
+    checks.append((f"panel elbo_fit N={PANEL_FIT['N']} (1, 4) vs unsharded",
+                   rel <= PANEL_FIT_RTOL and int(pf["it"]) == it,
+                   f"rel {rel:.3e}, sweeps {int(pf['it'])} / {it}"))
+    g = headline_problem(pkg, N=PANEL_N, device="cuda")
+    e, mu, var = g.engine.elbo_refine_lean(*_start(torch, g, torch.float64),
+                                           PANEL_SWEEPS)
+    pan = r["panel"]
+    print(f"panel N={PANEL_N} dims {pan['dims'].tolist()}: elbo "
+          f"{float(pan['elbo'])!r}, lean {float(e)!r}, jax "
+          f"{ref_jax['refine']['elbo']!r}", flush=True)
+    summary = state_summary(pan["mu"], pan["var"], ref_jax["stride"])
+    for what, elbo, ref_mu, ref_var in (
+            ("lean", float(e), mu.cpu().numpy(), var.cpu().numpy()),
+            ("jax", ref_jax["refine"]["elbo"], None, None)):
+        rel = _rel(float(pan["elbo"]), elbo)
+        checks.append((f"panel N={PANEL_N} ELBO vs {what}",
+                       rel <= PANEL_RTOL["elbo"], f"rel {rel:.3e}"))
+        for key, want in (("mu", ref_mu), ("var", ref_var)):
+            got = pan[key] if want is not None else summary[key]
+            want = want if want is not None else ref_jax["refine"][key]
+            err = _rel_state_err(got, want)
+            checks.append((f"panel N={PANEL_N} {key} vs {what}",
+                           err <= PANEL_RTOL["state"], f"{err:.3e}"))
+    s, pars, t, b, d = cg_mesh_system(torch)
+    nug = CG_MESH["nugget"]
+    x, _ = cg_solve(lambda v: kernel_matvec(s, pars, t, v, nugget=nug)
+                    + (d[:, None] * v if v.ndim == 2 else d * v), b,
+                    tol=CG_MESH["tol"], maxiter=CG_MESH["maxiter"],
+                    precond_diag=1.0 + nug + d)
+    rtol, atol = CG_MESH_TOL
+    x = x.cpu().numpy()
+    checks.append(("cg_solve_sharded (4, 1) vs cg_solve",
+                   np.allclose(r["cg"]["x"], x, rtol=rtol, atol=atol),
+                   f"max abs {np.max(np.abs(r['cg']['x'] - x)):.3e}, "
+                   f"{int(r['cg']['it'])} iterations"))
+    _check("parallel, 4 ranks", checks)
+    launches = {k: sum(x["launches"][k] for x in ranks)
+                for k in ranks[0]["launches"]}
+    return {"launches": launches, "wall": wall,
+            "slab_launches": sum(x["slab_launches"] for x in ranks),
+            "slab_max_abs_err": max(x["slab"]["max_abs_err"]
+                                    for x in ranks),
+            "slab_bits_equal": all(x["slab"]["bits_equal_b1_rows"]
+                                   for x in ranks)}
+
+
+def _slab_times(torch, ck, N, rows=SLAB_ROWS):
+    """B1's slab entry on a slab of ``rows`` rows of the headline node's
+    padded matrix at N (block 256, one rank; a 256-row slab from the
+    middle, a whole-width one from row 0), against its plain version and
+    its bound: each element inside N computed once ((rows inside N) · N
+    lags of QP), the slab written once."""
+    g = headline_problem(__import__("gpyrn_tpu_torch"), N=N, device="cuda")
+    node = g.nodes[0]
+    t, p = g._tensor(g.time), g._tensor(node.core_params())
+    Np = -(-N // PANEL_BLOCK) * PANEL_BLOCK
+    rows = min(rows, Np)
+    r0 = (Np // 2 // PANEL_BLOCK) * PANEL_BLOCK if rows < Np else 0
+    jit = torch.tensor(SLAB_JITTER, dtype=t.dtype, device="cuda")
+    ms = _time_ms(torch, lambda: ck.kernel_matrix_slab_cuda(
+        node.structure, p, t, Np, r0, rows, jit), 20)
+    plain_ms = _time_ms(torch, lambda: ck.kernel_matrix_slab_ref(
+        node.structure, p, t, Np, r0, rows, jit), 5)
+    bound, by = _bound(rows * Np * 8 + N * 8,
+                       OPS_PER_LAG["kernel_matrix"]
+                       * max(0, min(r0 + rows, N) - r0) * N, torch.float64)
+    torch.cuda.empty_cache()
+    return {"N": N, "n_pad": Np, "rows": rows, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def wide_rank():
+    """Phase 34 in one NCCL rank alone on the card: the headline model at
+    PANEL_WIDE["N"], the panel refine against the lean engine from one
+    lean sweep's state, the launches of the panel path, the distributed
+    CG at N=50,000; then (comparison launches) the slab entry's
+    whole-width slabs of the node and the first weight against their
+    plain version, and its times on 256-row and whole-width slabs."""
+    import torch
+    import gpyrn_tpu_torch as pkg
+    from gpyrn_tpu_torch.ops import cuda_kernels as ck
+    from gpyrn_tpu_torch.ops import iterative as it
+    from gpyrn_tpu_torch.parallel import cg_solve_sharded, make_panel_engine
+    from gpyrn_tpu_torch.parallel import mesh as pm
+    mesh = pm.make_mesh(shape=(1, 1))
+    cfg = PANEL_WIDE
+    g = headline_problem(pkg, N=cfg["N"], device="cuda")
+    eng = g.engine
+    theta, t, y, yerr2, mu0, var0 = _start(torch, g, torch.float64)
+    _, mu1, var1 = eng.elbo_refine_lean(theta, t, y, yerr2, mu0, var0, 1)
+    (e_l, mu_l, var_l), wall_l, peak_l = _measured(
+        torch, lambda: eng.elbo_refine_lean(theta, t, y, yerr2, mu1, var1,
+                                            cfg["sweeps"]))
+    pe = make_panel_engine(eng.spec, mesh, block=cfg["block"])
+    ck.reset_launch_counts()
+    (e_p, mu_p, var_p), wall_p, peak_p = _measured(
+        torch, lambda: pe.elbo_refine_panel(theta, t, y, yerr2, mu1, var1,
+                                            cfg["sweeps"]))
+    launches = dict(ck.LAUNCHES)
+    out = {"dims": tuple(pe.dims), "n_gp": eng.spec.q * (eng.spec.p + 1),
+           "backend": pm.mesh_axis(
+        mesh, pm.LAT_AXIS).backend, "launches": launches,
+        "lean": {"elbo": float(e_l), "s_per_sweep": wall_l / cfg["sweeps"],
+                 "peak_gib": peak_l},
+        "panel": {"elbo": float(e_p), "s_per_sweep": wall_p / cfg["sweeps"],
+                  "peak_gib": peak_p},
+        "elbo_rel": _rel(float(e_p), float(e_l)),
+        "mu_err": _rel_state_err(mu_p.cpu().numpy(), mu_l.cpu().numpy()),
+        "var_err": _rel_state_err(var_p.cpu().numpy(), var_l.cpu().numpy())}
+    del mu_l, var_l, mu_p, var_p
+    torch.cuda.empty_cache()
+    tt, pars, b = _solve_problem(torch, torch.float32)
+    nug = SOLVE_NUGGET
+    (x_s, it_s), wall_s = _timed(torch, lambda: cg_solve_sharded(
+        ("QP",), pars, tt, b, mesh, nugget=nug, **CG_WIDE))
+    k0 = it.kernel_diag(("QP",), pars, tt, 0.0)
+    minv = 1.0 / (k0 + nug)
+    (x_r, it_r), wall_r = _timed(torch, lambda: it.cg_solve(
+        lambda v: it.kernel_matvec(("QP",), pars, tt, v, nugget=nug,
+                                   chunk=CG_WIDE["chunk"]), b,
+        tol=CG_WIDE["tol"], maxiter=CG_WIDE["maxiter"],
+        precond_apply=lambda r: r * minv[:, None]))
+    rtol, atol = CG_MESH_TOL
+    out["cg"] = {"iters": (it_s, it_r), "wall": (wall_s, wall_r),
+                 "max_abs": float((x_s - x_r).abs().max()),
+                 "ok": bool(torch.allclose(x_s, x_r, rtol=rtol, atol=atol))}
+    Np = -(-cfg["N"] // cfg["block"]) * cfg["block"]
+    out["slab_full"] = [_slab_against_plain(torch, ck, k, t, Np, 0, Np)
+                        for k in (g.nodes[0], g.weights[0])]
+    out["slab_times"] = [_slab_times(torch, ck, n)
+                         for n in (PANEL_N, cfg["N"])]
+    out["slab_times"].append(_slab_times(torch, ck, cfg["N"], Np))
+    return out
+
+
+def phase_parallel_wide(torch):
+    """34: the full-width path on a one-rank NCCL mesh."""
+    from gpyrn_tpu_torch.parallel.mesh import spawn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (w,) = spawn(wide_rank, 1, "nccl", "cuda", timeout=PARALLEL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    cfg = PANEL_WIDE
+    print(f"one NCCL rank ({w['backend']}), headline N={cfg['N']} dims "
+          f"{list(w['dims'])}: elbo_refine_panel {cfg['sweeps']} sweeps "
+          f"{w['panel']['s_per_sweep']:.3f} s/sweep (the prior factors "
+          f"included), peak {w['panel']['peak_gib']:.2f} GiB, "
+          f"{w['launches']['kernel_matrix']} slab launches "
+          f"({w['launches']['kernel_matrix'] / cfg['sweeps']:.2f} per sweep, "
+          f"{w['n_gp']} GPs); elbo_refine_lean {w['lean']['s_per_sweep']:.3f} "
+          f"s/sweep, peak {w['lean']['peak_gib']:.2f} GiB; phase wall "
+          f"{wall:.1f} s", flush=True)
+    print(f"cg_solve_sharded N={SOLVE_N} float32 vs cg_solve: iterations "
+          f"{w['cg']['iters']}, walls {w['cg']['wall']} s, max |dx| "
+          f"{w['cg']['max_abs']:.3e}", flush=True)
+    for rec in w["slab_times"]:
+        print(f"B1 slab entry, {rec['rows']}-row slab at N={rec['N']} "
+              f"(Np {rec['n_pad']}): {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})", flush=True)
+    slab_checks = []
+    for rec in w["slab_full"]:
+        print(f"B1 slab entry, whole slab {rec['structure']} rows "
+              f"{rec['rows']} of Np {rec['n_pad']}: max abs err vs plain "
+              f"{rec['max_abs_err']:.3e}, bit-equal to B1's full-matrix "
+              f"rows: {rec['bits_equal_b1_rows']}", flush=True)
+        slab_checks.append((f"whole slab {rec['structure']} vs plain",
+                            rec["within_tol"],
+                            f"max abs err {rec['max_abs_err']:.3e} (rtol "
+                            f"{SLAB_RTOL}, atol {SLAB_ATOL_REL}·max|K|)"))
+    _check(f"parallel, one NCCL rank, N={cfg['N']}", slab_checks + [
+        ("backend", w["backend"] == "nccl", w["backend"]),
+        ("slab launches", w["launches"]["kernel_matrix"] > 0,
+         f"{w['launches']['kernel_matrix']}"),
+        ("ELBO panel vs lean", w["elbo_rel"] <= PANEL_WIDE_RTOL["elbo"],
+         f"rel {w['elbo_rel']:.3e}"),
+        ("mu panel vs lean", w["mu_err"] <= PANEL_WIDE_RTOL["state"],
+         f"{w['mu_err']:.3e}"),
+        ("var panel vs lean", w["var_err"] <= PANEL_WIDE_RTOL["state"],
+         f"{w['var_err']:.3e}"),
+        ("cg_solve_sharded vs cg_solve", w["cg"]["ok"],
+         f"max abs {w['cg']['max_abs']:.3e}")])
+    return w, wall
+
+
+def parallel_main(torch, pkg):
+    """Phases 33-34 in this process (its own CUDA context beside the
+    ranks it starts): the ranks count their launches; the last line is
+    the JSON record the parent reads."""
+    from gpyrn_tpu_torch.ops import _build
+    _build.build("kernel_matrix")       # once, before the ranks load it
+    t0 = time.perf_counter()
+    print(f"== phase 33: the multi-device layer, {PARALLEL_RANKS} gloo "
+          f"ranks sharing the card", flush=True)
+    ranks = phase_parallel_ranks(torch, pkg)
+    print(f"== phase 34: full width, headline model at "
+          f"N={PANEL_WIDE['N']}, a one-rank NCCL mesh", flush=True)
+    wide, _ = phase_parallel_wide(torch)
+    launches = {k: ranks["launches"][k] + wide["launches"][k]
+                for k in ranks["launches"]}
+    wall = time.perf_counter() - t0
+    print(f"parallel path launches: {launches}; phases 33-34 took "
+          f"{wall:.1f} s", flush=True)
+    print(json.dumps({
+        "launches": launches, "seconds": wall,
+        "slab": {"launches": (ranks["slab_launches"]
+                              + wide["launches"]["kernel_matrix"]),
+                 "max_abs_err": ranks["slab_max_abs_err"],
+                 "bits_equal_b1_rows": ranks["slab_bits_equal"],
+                 "times": wide["slab_times"]}}), flush=True)
+
+
 def _child(arg):
     """The output lines of this script run with ``arg`` in a fresh
     process; its failure fails the run."""
@@ -3453,6 +3983,9 @@ def main():
         return
     if sys.argv[1:2] == [MAGMA_ARG]:
         magma_batched_solve(torch, int(sys.argv[2]))
+        return
+    if sys.argv[1:] == [PARALLEL_ARG]:
+        parallel_main(torch, pkg)
         return
 
     print("== phase 1: environment", flush=True)
@@ -3624,6 +4157,18 @@ def main():
     print(f"phases 29-32 took {time.perf_counter() - t_rv:.1f} s",
           flush=True)
 
+    # the multi-device layer, in a process of its own: its ranks count
+    # their own launches, set to 0 before the path and read after it
+    print("== phases 33-34: the multi-device layer, in a fresh process",
+          flush=True)
+    lines = _child(PARALLEL_ARG)
+    print("\n".join(lines[:-1]), flush=True)
+    parallel = json.loads(lines[-1])
+    parallel_launches = parallel["launches"]
+    if parallel_launches["kernel_matrix"] == 0:
+        raise AssertionError("the parallel path never launched "
+                             "kernel_matrix")
+
     kernels = []
     for kname, rec in (("kernel_matrix", record),
                        ("kernel_matrix_grad", grad_record)):
@@ -3634,7 +4179,8 @@ def main():
                    "sampler": sampler_launches[kname],
                    "large": large_launches[kname],
                    "solar": solar_launches[kname],
-                   "serving": serving_launches[kname]}
+                   "serving": serving_launches[kname],
+                   "parallel": parallel_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",
@@ -3642,6 +4188,9 @@ def main():
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **rec})
     kernels[0]["n20000"] = large["wide"]["b1"]
+    # B1's slab entry (the panel path's slabs): its launches on phases
+    # 33-34, its error against the plain version, its times
+    kernels[0]["slab"] = parallel["slab"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,9 @@
   the headline model from its converged state (kept whole) at N=1000 and
   from the heuristic state at N=5000, called at ``chip_smoke.SERVE``'s
   request sizes, and its float32 artifact of the headline model.
+* the multi-device layer (section ``parallel``): one float64
+  ``elbo_refine_lean`` sweep of the headline model at N=4096, which the
+  JAX package's tests hold its panel engine equal to.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_oracle.py [--all]
 
@@ -341,6 +344,24 @@ def lean_section(gpyrn_tpu):
     return out
 
 
+def parallel_section(gpyrn_tpu):
+    """The multi-device phase 33's oracle: one float64 sweep of the JAX
+    package's single-device ``elbo_refine_lean`` on the headline model at
+    ``chip_smoke.PANEL_N`` from the heuristic start, which the JAX
+    package's own tests (tests/test_panel.py) hold its panel engine equal
+    to."""
+    N = chip_smoke.PANEL_N
+    g = chip_smoke.headline_problem(gpyrn_tpu, N=N)
+    eng, theta = g.engine, g._theta()
+    mu0, var0 = eng.init_mu_var(theta, g.y)
+    elbo, mu, var = eng.elbo_refine_lean(
+        theta, np.asarray(g.time, dtype=float), g.y, g.yerr2, mu0, var0,
+        chip_smoke.PANEL_SWEEPS)
+    return {"N": N, "sweeps": chip_smoke.PANEL_SWEEPS, "stride": STRIDE,
+            "refine": {"elbo": float(elbo), **chip_smoke.state_summary(
+                np.asarray(mu), np.asarray(var), STRIDE)}}
+
+
 def astro_section(gpyrn_tpu):
     import jax
     import jax.numpy as jnp
@@ -533,6 +554,11 @@ def main():
         "rows (solar), and gpyrn_tpu.serving's artifact of the headline "
         "model at N=1000 (its converged state kept whole) and N=5000 "
         "(serving), with the headline's float32 artifact")
+    out["_note_parallel"] = (
+        "cached oracle, as _note says: one float64 elbo_refine_lean sweep "
+        "of the headline model at N=4096 from the heuristic start "
+        "(parallel), the single-device value the JAX package's tests hold "
+        "its panel engine to")
     out["_command"] = COMMAND
     out.setdefault("_jax", jax.__version__)
     sections = list(fit_sections(gpyrn_tpu)) + [
@@ -552,7 +578,8 @@ def main():
         ("lean", lambda: lean_section(gpyrn_tpu)),
         ("astro", lambda: astro_section(gpyrn_tpu)),
         ("solar", lambda: solar_section(gpyrn_tpu)),
-        ("serving", lambda: serving_section(gpyrn_tpu))]
+        ("serving", lambda: serving_section(gpyrn_tpu)),
+        ("parallel", lambda: parallel_section(gpyrn_tpu))]
     for name, section in sections:
         if name in out:
             print(name, "kept", flush=True)

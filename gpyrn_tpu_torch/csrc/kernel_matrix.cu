@@ -10,6 +10,13 @@
 // kernel of the JAX package; B1' is its backward, which the JAX package
 // takes by autodiff through the Pallas kernel.
 //
+// B1 has a second entry, the slab (kernel_matrix_slab_kernel): rows
+// [r0, r0 + n_rows) of the padded n_pad x n_pad matrix, identity past n,
+// the row slab that one rank of the panel-sharded engine holds.  The JAX
+// package builds that slab in plain jnp (gpyrn_tpu/parallel/panel_fit.py,
+// _slab_kernel); here it shares B1's element math, one block per tile,
+// no mirror.
+//
 // What bounds them.  Neither kernel is bound by its bytes (B1 writes N^2
 // values once, B1' reads N^2 once): every element costs an exp, a sin or a
 // pow and a few divisions in IEEE arithmetic (no fast math, no FMA
@@ -68,10 +75,10 @@
 // operation rounds as the plain version's does and the two agree to the
 // last bits of the math library's exp / sin.
 //
-// Without __CUDACC__ only the element math and the tile-pair index map
-// below are compiled (plain C++): the CPU tests build them with the host
-// compiler and hold both kernels' arithmetic against autograd of the plain
-// version.
+// Without __CUDACC__ only the element math, the tile-pair index map and
+// the slab's element rule below are compiled (plain C++): the CPU tests
+// build them with the host compiler and hold the kernels' arithmetic
+// against autograd of the plain version.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -764,6 +771,18 @@ __host__ __device__ __forceinline__ void tile_pair(long long p, int* I,
   *J = (int)(p - i * (i + 1) / 2);
 }
 
+// B1's slab entry, one element (i, j) of the n_pad x n_pad matrix whose
+// rows [r0, r0 + n_rows) the entry writes: the kernel value k = k(t_i -
+// t_j) with the jitter on the diagonal inside the n x n matrix, identity
+// in the padded rows and columns (the panel-sharded engine's padding).  k
+// is read only inside the matrix.
+template <typename T>
+__host__ __device__ __forceinline__ T slab_element(int i, int j, int n, T k,
+                                                   T jit) {
+  if (i >= n || j >= n) return i == j ? T(1) : T(0);
+  return i == j ? k + jit : k;
+}
+
 #ifdef __CUDACC__
 
 // A thread's share of a tile: VEC neighbouring columns (16 bytes) in each of
@@ -795,21 +814,22 @@ __device__ __forceinline__ void load16(const float* p, float* v) {
   v[3] = x.w;
 }
 
-// v[0 .. VEC) to a[row, col .. col + VEC) of an n x n matrix, inside the
-// matrix only; one 16-byte store when `vec` (n a multiple of VEC and a
-// aligned, so a column in range has its whole group in range).
+// v[0 .. VEC) to a[row, col .. col + VEC) of a rows x cols matrix, inside
+// the matrix only; one 16-byte store when `vec` (cols a multiple of VEC
+// and a aligned, so a column in range has its whole group in range).
 template <typename T>
 __device__ __forceinline__ void store_group(T* a, int row, int col,
-                                            const T* v, int n, bool vec) {
-  if (row >= n || col >= n) return;
-  T* at = a + (size_t)row * (size_t)n + (size_t)col;
+                                            const T* v, int rows, int cols,
+                                            bool vec) {
+  if (row >= rows || col >= cols) return;
+  T* at = a + (size_t)row * (size_t)cols + (size_t)col;
   if (vec) {
     store16(at, v);
     return;
   }
 #pragma unroll
   for (int u = 0; u < Share<T>::VEC; ++u) {
-    if (col + u < n) at[u] = v[u];
+    if (col + u < cols) at[u] = v[u];
   }
 }
 
@@ -904,7 +924,7 @@ kernel_matrix_kernel(const T* __restrict__ t, const T* __restrict__ params,
                                     ti[li] - tj[cx + u]);
       if (i == J * TILE + cx + u) v[u] = v[u] + jit;
     }
-    store_group<T>(out, i, J * TILE + cx, v, n, vec);
+    store_group<T>(out, i, J * TILE + cx, v, n, n, vec);
     if (I != J) {
 #pragma unroll
       for (int u = 0; u < S::VEC; ++u) tile[li][cx + u] = v[u];
@@ -918,8 +938,81 @@ kernel_matrix_kernel(const T* __restrict__ t, const T* __restrict__ params,
       T v[S::VEC];
 #pragma unroll
       for (int u = 0; u < S::VEC; ++u) v[u] = tile[cx + u][lj];
-      store_group<T>(out, J * TILE + lj, I * TILE + cx, v, n, vec);
+      store_group<T>(out, J * TILE + lj, I * TILE + cx, v, n, n, vec);
     }
+  }
+}
+
+// B1's slab entry: rows [r0, r0 + n_rows) of the n_pad x n_pad matrix
+// K(t, t) + jitter I padded with identity past n, the row slab a rank of
+// the panel-sharded engine holds (gpyrn_tpu/parallel/panel_fit.py::
+// _slab_kernel there).  Block (x, y) writes tile (y, x) of the slab, every
+// element once: a slab is not symmetric, so there is no mirror, and a lag
+// t_i - t_j above the diagonal gives the bits of t_j - t_i (every leaf is
+// even in r), so each element equals B1's at the same row and column.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS)
+kernel_matrix_slab_kernel(const T* __restrict__ t,
+                          const T* __restrict__ params,
+                          const T* __restrict__ jitter, T* __restrict__ out,
+                          int n, int n_pad, int r0, int n_rows, int n_params,
+                          bool vec, const Program prog) {
+  typedef Share<T> S;
+  __shared__ T par[MAX_PARAMS];
+  __shared__ T cst[(MODE == MODE_ANY ? MAX_OPS : 2) * N_CONSTS];
+  __shared__ T ti[TILE];
+  __shared__ T tj[TILE];
+  const int tid = threadIdx.x;
+  for (int k = tid; k < n_params; k += THREADS) par[k] = params[k];
+  __syncthreads();
+  if constexpr (MODE >= OP_C) {
+    if (tid == 0) leaf_consts<T>(MODE, par, cst);
+  } else {
+    if (tid < prog.n_ops && is_leaf_op(prog.op[tid])) {
+      leaf_consts<T>(prog.op[tid], par + prog.off[tid], cst + tid * N_CONSTS);
+    }
+  }
+  __syncthreads();
+  T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
+  if constexpr (MODE != MODE_ANY) {
+    const int off1 = MODE == MODE_PAIR ? prog.off[1] : 0;
+#pragma unroll
+    for (int m = 0; m < LEAF_PARAMS; ++m) {
+      p0[m] = par[m];
+      p1[m] = par[off1 + m];
+    }
+#pragma unroll
+    for (int m = 0; m < N_CONSTS; ++m) {
+      c0[m] = cst[m];
+      c1[m] = cst[N_CONSTS + m];
+    }
+  }
+  const T jit = jitter[0];
+  const int cx = (tid % S::THREADS_PER_ROW) * S::VEC;
+  const int ry = tid / S::THREADS_PER_ROW;
+  const int I = blockIdx.y, J = blockIdx.x;
+  if (tid < TILE) {
+    const int i = r0 + I * TILE + tid;
+    ti[tid] = i < n ? t[i] : T(0);
+  } else if (tid < 2 * TILE) {
+    const int j = J * TILE + tid - TILE;
+    tj[tid - TILE] = j < n ? t[j] : T(0);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int pass = 0; pass < S::PASSES; ++pass) {
+    const int li = ry + pass * S::ROWS_PER_PASS;
+    const int row = I * TILE + li;
+    T v[S::VEC];
+#pragma unroll
+    for (int u = 0; u < S::VEC; ++u) {
+      v[u] = slab_element<T>(
+          r0 + row, J * TILE + cx + u, n,
+          program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                 ti[li] - tj[cx + u]),
+          jit);
+    }
+    store_group<T>(out, row, J * TILE + cx, v, n_rows, n_pad, vec);
   }
 }
 
@@ -1125,6 +1218,39 @@ static int launch(int device, const T* t, const T* params, const T* jitter,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch_slab(int device, const T* t, const T* params,
+                       const T* jitter, T* out, int n, int n_pad, int r0,
+                       int n_rows, int n_params, const int* ops,
+                       const int* offs, const int* lhs, const int* rhs,
+                       int n_ops, void* stream) {
+  Program prog;
+  int bad = make_program(n, n_params, ops, offs, lhs, rhs, n_ops, &prog);
+  if (bad) return bad;
+  if (n_pad < n || r0 < 0 || n_rows < 1 || n_pad - n_rows < r0 ||
+      (n_rows + TILE - 1) / TILE > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = aligned16(out, n_pad);
+  const dim3 grid((unsigned)((n_pad + TILE - 1) / TILE),
+                  (unsigned)((n_rows + TILE - 1) / TILE));
+  cudaStream_t s = (cudaStream_t)stream;
+#define RUN(MODE)                                                     \
+  kernel_matrix_slab_kernel<T, MODE><<<grid, THREADS, 0, s>>>(        \
+      t, params, jitter, out, n, n_pad, r0, n_rows, n_params, vec, prog)
+#define CASE(OP) case OP: RUN(OP); break;
+  switch (program_mode(prog)) {
+    FOR_EACH_LEAF(CASE)
+    case MODE_PAIR: RUN(MODE_PAIR); break;
+    default: RUN(MODE_ANY); break;
+  }
+#undef CASE
+#undef RUN
+  return (int)cudaGetLastError();
+}
+
 // n_blocks is the grid, at least one block and at most one per tile pair;
 // partial holds n_blocks rows of n_params.
 template <typename T>
@@ -1181,6 +1307,26 @@ extern "C" int gpyrn_kernel_matrix_f32(int device, const float* t,
                                        int n_ops, void* stream) {
   return launch<float>(device, t, params, jitter, out, n, n_params,
                        ops, offs, lhs, rhs, n_ops, stream);
+}
+
+extern "C" int gpyrn_kernel_matrix_slab_f64(
+    int device, const double* t, const double* params, const double* jitter,
+    double* out, int n, int n_pad, int r0, int n_rows, int n_params,
+    const int* ops, const int* offs, const int* lhs, const int* rhs,
+    int n_ops, void* stream) {
+  return launch_slab<double>(device, t, params, jitter, out, n, n_pad, r0,
+                             n_rows, n_params, ops, offs, lhs, rhs, n_ops,
+                             stream);
+}
+
+extern "C" int gpyrn_kernel_matrix_slab_f32(
+    int device, const float* t, const float* params, const float* jitter,
+    float* out, int n, int n_pad, int r0, int n_rows, int n_params,
+    const int* ops, const int* offs, const int* lhs, const int* rhs,
+    int n_ops, void* stream) {
+  return launch_slab<float>(device, t, params, jitter, out, n, n_pad, r0,
+                            n_rows, n_params, ops, offs, lhs, rhs, n_ops,
+                            stream);
 }
 
 extern "C" int gpyrn_kernel_matrix_grad_f64(

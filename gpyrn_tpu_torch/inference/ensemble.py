@@ -28,6 +28,12 @@ Two modes, as in the JAX package:
 
 Proposals whose prior density is zero skip their fit: they cannot be
 accepted, and no output reads their ELBO.
+
+With ``mesh=`` (the device chain only; called by every rank of the mesh)
+the fits of each batch of walkers are split over the mesh's ``dp`` axis
+when the batch divides by it, and gathered: every rank draws the same
+numbers from the same seeded generator and keeps the whole chain, so the
+chain is the unsharded one.
 """
 from __future__ import annotations
 
@@ -37,13 +43,15 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from gpyrn_tpu_torch.parallel.mesh import dp_rows
 
 __all__ = ["run_ensemble", "EnsembleResult", "autocorr_time",
            "init_walkers"]
 
-# the ROADMAP item that holds the multi-device paths
-_MESH_MESSAGE = ("mesh= (walkers sharded over a device mesh) is not ported "
-                 "yet: ROADMAP A15")
+_MESH_MESSAGE = ("mesh= requires the device chain (the port's traceable "
+                 "priors); the host loop cannot shard walkers")
 
 
 # --------------------------------------------------------------------------
@@ -198,14 +206,29 @@ def _theta_rows(gprn):
     return rows
 
 
-def _logpost(gprn, logprior, elbo_max_iter):
+def _batch_fit(gprn, elbo_max_iter, mesh):
+    """``fit(theta, mu, var) -> (elbo, mu, var, n_iter, converged)``: one
+    :meth:`Engine.elbo_fit_batch` of the rows, split over the mesh's
+    ``dp`` axis when there is one and the rows divide by it."""
+    eng, data = gprn.engine, gprn._data()
+
+    def fit_rows(theta, mu, var):
+        return eng.elbo_fit_batch(theta, *data, mu, var, elbo_max_iter)
+
+    def fit(theta, mu, var):
+        return dp_rows(fit_rows, mesh, theta, mu, var)
+    return fit
+
+
+def _logpost(gprn, logprior, elbo_max_iter, mesh=None):
     """``logpost(x, mu, var, skip=True) -> (lp, elbo, mu, var, converged)``
     of the walkers ``x`` (W, ndim) from their states, tensors on the
-    inference's device: ``logprior(x)`` plus the ELBO of one batched fit,
-    a non-finite ELBO taken as −inf.  With ``skip`` the walkers whose
-    prior density is zero skip their fit (one host read of that mask):
-    they keep their state and get a −inf ELBO, unconverged."""
-    eng, data = gprn.engine, gprn._data()
+    inference's device: ``logprior(x)`` plus the ELBO of one batched fit
+    (:func:`_batch_fit`), a non-finite ELBO taken as −inf.  With ``skip``
+    the walkers whose prior density is zero skip their fit (one host read
+    of that mask): they keep their state and get a −inf ELBO,
+    unconverged."""
+    fit = _batch_fit(gprn, elbo_max_iter, mesh)
     theta_rows = _theta_rows(gprn)
 
     def logpost(x, mu, var, skip=True):
@@ -213,8 +236,7 @@ def _logpost(gprn, logprior, elbo_max_iter):
         theta = theta_rows(x)
         run = torch.isfinite(lp_pri).cpu().numpy() if skip else None
         if run is None or run.all():
-            elbo, mu_o, var_o, _, conv = eng.elbo_fit_batch(
-                theta, *data, mu, var, elbo_max_iter)
+            elbo, mu_o, var_o, _, conv = fit(theta, mu, var)
         else:
             elbo = torch.full((x.shape[0],), -math.inf, dtype=x.dtype,
                               device=x.device)
@@ -222,8 +244,7 @@ def _logpost(gprn, logprior, elbo_max_iter):
             conv = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
             if run.any():
                 rows = torch.as_tensor(np.flatnonzero(run), device=x.device)
-                e, m, v, _, c = eng.elbo_fit_batch(
-                    theta[rows], *data, mu[rows], var[rows], elbo_max_iter)
+                e, m, v, _, c = fit(theta[rows], mu[rows], var[rows])
                 elbo[rows], mu_o[rows], var_o[rows], conv[rows] = e, m, v, c
         elbo = torch.where(torch.isfinite(elbo), elbo,
                            torch.full_like(elbo, -math.inf))
@@ -412,10 +433,11 @@ def run_ensemble(gprn, priors: Dict, free_names, p0=None, niter: int = 500,
     :mod:`gpyrn_tpu_torch.inference.priors`; scipy priors, or
     ``device_chain=False``, run the host loop (see the module docstring).
     Both implement the Goodman-Weare stretch move and the reference's
-    autocorrelation stopping rule.  ``mesh`` (walkers sharded over
-    several devices) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
+    autocorrelation stopping rule.  ``mesh`` (a
+    :func:`gpyrn_tpu_torch.parallel.make_mesh` mesh, the call made by
+    every rank): the walkers' fits split over its ``dp`` axis (see the
+    module docstring); the device chain only, and the checkpoint and the
+    progress lines come from global rank 0 alone."""
     free_names = list(free_names)
     ndim = len(free_names)
     n_free = int(np.count_nonzero(~gprn.frozen_mask))
@@ -435,6 +457,11 @@ def run_ensemble(gprn, priors: Dict, free_names, p0=None, niter: int = 500,
     half = nwalkers // 2
     use_device = device_chain if device_chain is not None else \
         _traceable_priors(priors, free_names)
+    if mesh is not None:
+        if not use_device:
+            raise ValueError(_MESH_MESSAGE)
+        if dist.get_rank() != 0:
+            checkpoint, progress = None, False
     if use_device:
         # a device generator, segments of check_every steps, the JAX
         # device chain's rule: a check after every segment past the first
@@ -455,6 +482,6 @@ def run_ensemble(gprn, priors: Dict, free_names, p0=None, niter: int = 500,
 
         def check(steps):
             return steps % check_every == 0 and steps > 2
-    return _run_chain(_logpost(gprn, logprior, elbo_max_iter), x, mu, var,
-                      niter, draws, seg_len, check, free_names, checkpoint,
-                      progress)
+    return _run_chain(_logpost(gprn, logprior, elbo_max_iter, mesh), x, mu,
+                      var, niter, draws, seg_len, check, free_names,
+                      checkpoint, progress)

@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 from scipy import stats as _st
 
+from gpyrn_tpu_torch.parallel.mesh import dp_rows
+
 __all__ = [
     "compute_perrakis_estimate", "compute_harmonicmean", "run_hme_mc",
     "compute_cj_estimate", "estimate_density", "make_marginal_samples",
@@ -275,14 +277,17 @@ def batch_elbo(gprn, thetas, max_iter: int = 100, mesh=None):
     fitted from the heuristic start under the reference rule, at most
     ``max_iter`` sweeps, in one :meth:`Engine.elbo_fit_batch` call on the
     inference's device.  Frozen parameters in ``thetas`` columns are taken
-    as given; pass full-width vectors.  ``mesh`` (the batch sharded over
-    several devices) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the batch sharded over a device "
-                                  "mesh) is not ported yet: ROADMAP A15")
+    as given; pass full-width vectors.
+
+    ``mesh`` (a :func:`gpyrn_tpu_torch.parallel.make_mesh` mesh, the call
+    made by every rank): the rows are split over its ``dp`` axis when
+    their count divides by it, each rank fits its share, and every rank
+    returns all rows; otherwise every rank fits them all."""
     eng = gprn.engine
+    data = gprn._data()
+
+    def fit(theta):
+        mu0, var0 = eng.init_mu_var(theta, data[1])
+        return eng.elbo_fit_batch(theta, *data, mu0, var0, int(max_iter))[0]
     thetas = gprn._tensor(np.atleast_2d(np.asarray(thetas, dtype=float)))
-    mu0, var0 = eng.init_mu_var(thetas, gprn._tensor(gprn.y))
-    elbo, *_ = eng.elbo_fit_batch(thetas, *gprn._data(), mu0, var0,
-                                  int(max_iter))
-    return elbo.cpu().numpy()
+    return dp_rows(fit, mesh, thetas).cpu().numpy()

@@ -154,6 +154,7 @@ class inference:
         self._engine = None
         self._cg_engine = None      # keyed by (cg_rank, cg_tol)
         self._svi_engines = {}
+        self._lattice_axis = None
         self.verbose = False
 
     def _tensor(self, x, dtype=None):
@@ -384,7 +385,8 @@ class inference:
         """The fit-and-predict engine of the current model structure."""
         self._require_components()
         if self._engine is None:
-            self._engine = _core.Engine(*self._spec_and_core_maps())
+            self._engine = _core.Engine(*self._spec_and_core_maps(),
+                                        lattice_axis=self._lattice_axis)
         return self._engine
 
     @property
@@ -400,6 +402,19 @@ class inference:
                 spec, rank=self.cg_rank, cg_tol=self.cg_tol,
                 core_maps=core_maps))
         return self._cg_engine[1]
+
+    @property
+    def lattice_axis(self):
+        """The mesh axis over which the engine splits the (q × p) weight
+        lattice (None: unsharded).  When set, every rank of the mesh runs
+        the inference inside ``gpyrn_tpu_torch.parallel.use_mesh(mesh)``."""
+        return self._lattice_axis
+
+    @lattice_axis.setter
+    def lattice_axis(self, axis):
+        self._lattice_axis = axis
+        self._engine = None
+        self._cg_engine = None
 
     def _svi_engine(self, batch_p):
         """The stochastic fit (models/svi.py) sampling ``batch_p`` outputs

@@ -19,6 +19,11 @@ sweep for the state rule, and one per CG iteration inside each solve.
 The agreement with the lean engine is set by the rank-m truncation of
 diag Σ and the CG tolerance (the JAX package's bar: 1e-4 relative state
 error at overlapping N, one float64 sweep).
+
+With ``mesh=`` every kernel matvec's rows are split over one mesh axis
+(``parallel.iterative_sharded.gathered_matvec``): the fit itself
+runs replicated on every rank, called by all of them, and only the O(N²)
+matvec work divides by the axis size.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from gpyrn_tpu_torch.ops.iterative import (cg_solve, kernel_diag,
                                            kernel_matvec, pivoted_cholesky,
                                            split_precond)
 from gpyrn_tpu_torch.ops.linalg import F32_JITTER_MULT, TRAIN_NUGGET
+from gpyrn_tpu_torch.parallel.iterative_sharded import gathered_matvec
+from gpyrn_tpu_torch.parallel.mesh import mesh_axis
 
 __all__ = ["CGFitEngine", "make_cg_fit"]
 
@@ -60,18 +67,29 @@ def make_cg_fit(spec: GPRNSpec, rank: int = 128, cg_tol: float = 1e-6,
             results do not depend on it beyond rounding).
         core_maps: per-kernel (trainable → core) parameter maps, as for
             ``Engine``.
-        mesh / axis_name: the JAX package's row-slab distribution of the
-            matvecs over a device mesh; not ported (ROADMAP A15), raises.
+        mesh / axis_name: split every kernel matvec's rows over this
+            mesh axis (the fit is then called by every rank of the mesh);
+            N must divide by the axis size.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_cg_fit(mesh=...) (the matvecs' row slabs over a device "
-            "mesh) is not ported yet: ROADMAP A15")
     q, p, N = spec.q, spec.p, spec.N
     eng = Engine(spec, core_maps)
+    if mesh is not None:
+        axis = mesh_axis(mesh, axis_name)
+        if N % axis.size:
+            raise ValueError(f"sharded CG fit needs N ({N}) divisible by the "
+                             f"'{axis_name}' axis size ({axis.size})")
+        rows = slice(axis.rank * (N // axis.size),
+                     (axis.rank + 1) * (N // axis.size))
 
     def _kmv(structure, cp, t, x, nu):
-        return kernel_matvec(structure, cp, t, x, nugget=nu, chunk=chunk)
+        """(K + nu·I) @ x: chunked on one device, or this rank's rows and
+        a gather when built with a mesh."""
+        if mesh is None:
+            return kernel_matvec(structure, cp, t, x, nugget=nu, chunk=chunk)
+        xm = x[:, None] if x.ndim == 1 else x
+        y = gathered_matvec(structure, cp, t[rows], t, xm, axis, chunk) \
+            + nu * xm
+        return y[:, 0] if x.ndim == 1 else y
 
     def factors(theta, t):
         """Per-GP pivoted-Cholesky factors of the smooth kernel (no

@@ -197,12 +197,54 @@ class Engine:
 
     ``core_maps`` optionally carries per-kernel (trainable → core)
     parameter maps for kernels with static extras (QuasiHarmonicPeriodic):
-    a pair (node maps, weight maps) of tuples of callables or None."""
+    a pair (node maps, weight maps) of tuples of callables or None.
 
-    def __init__(self, spec: GPRNSpec, core_maps: Optional[Tuple] = None):
+    ``lattice_axis`` optionally names a mesh axis over which the (q × p)
+    weight lattice is split: the dense paths' weight kernel matrices and
+    their factorizations (the prior Cholesky of ``_prepare``, the A = K +
+    D⁻¹ factorizations of every sweep) are built by each rank of the axis
+    for its contiguous share of the weight GPs and gathered, under autograd
+    too.  Such an engine is called collectively by the ranks of the mesh
+    set by :func:`gpyrn_tpu_torch.parallel.use_mesh` (the JAX package's
+    ``jax.set_mesh``).  A lattice that does not divide over the axis stays
+    whole on every rank."""
+
+    def __init__(self, spec: GPRNSpec, core_maps: Optional[Tuple] = None,
+                 lattice_axis: Optional[str] = None):
         self.spec = spec
         self.node_maps, self.weight_maps = (
             core_maps if core_maps is not None else (None, None))
+        self.lattice_axis = lattice_axis
+
+    def _lat_axis(self):
+        """The mesh axis that splits the weight lattice, or None when the
+        engine is unsharded, the axis has one rank, or q·p does not divide
+        over it."""
+        if self.lattice_axis is None:
+            return None
+        from gpyrn_tpu_torch.parallel.mesh import current_mesh, mesh_axis
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError(f"the engine's lattice_axis is "
+                             f"{self.lattice_axis!r}: call it inside "
+                             f"gpyrn_tpu_torch.parallel.use_mesh(mesh)")
+        axis = mesh_axis(mesh, self.lattice_axis)
+        qp = self.spec.q * self.spec.p
+        return axis if axis.size > 1 and qp % axis.size == 0 else None
+
+    def _weight_map(self, fn, X):
+        """``fn`` of the stack X (..., q·p, N, N) of weight matrices, each
+        output with the lattice at X's dimension -3.  Lattice-sharded,
+        each rank applies ``fn`` to its contiguous share and the outputs
+        are gathered; the gradient of X collects every share's part."""
+        axis = self._lat_axis()
+        if axis is None:
+            return fn(X)
+        from gpyrn_tpu_torch.parallel.mesh import gather_grad, reduce_grad
+        dim = X.ndim - 3
+        n = X.shape[dim] // axis.size
+        outs = fn(reduce_grad(X, axis).narrow(dim, axis.rank * n, n))
+        return tuple(gather_grad(o, axis, dim) for o in outs)
 
     # ---- model-building helpers -------------------------------------------
 
@@ -226,12 +268,29 @@ class Engine:
         parameters rows of ``theta`` (no host read)."""
         spec = self.spec
         batch = theta.shape[:-1]
-        node_p, weight_p, _, _ = unpack_parameters(
-            spec, theta.reshape(-1, theta.shape[-1]))
-        K = kernel_matrix_rows(spec.node_structs + spec.weight_structs,
+        theta = theta.reshape(-1, theta.shape[-1])
+        node_p, weight_p, _, _ = unpack_parameters(spec, theta)
+        weight_structs, weight_maps = spec.weight_structs, self.weight_maps
+        axis = self._lat_axis()
+        if axis is not None:
+            # the rank's share of the weight GPs, built beside the nodes
+            from gpyrn_tpu_torch.parallel.mesh import gather_grad, \
+                reduce_grad
+            n = len(weight_structs) // axis.size
+            share = slice(axis.rank * n, (axis.rank + 1) * n)
+            weight_structs = weight_structs[share]
+            if weight_maps is not None:
+                weight_maps = weight_maps[share]
+            _, weight_p, _, _ = unpack_parameters(spec,
+                                                  reduce_grad(theta, axis))
+            weight_p = weight_p[share]
+        K = kernel_matrix_rows(spec.node_structs + weight_structs,
                                self._core(node_p, self.node_maps) +
-                               self._core(weight_p, self.weight_maps),
+                               self._core(weight_p, weight_maps),
                                t, TRAIN_NUGGET, jitter_mult=jitter_mult)
+        if axis is not None:
+            q = spec.q
+            K = torch.cat([K[:, :q], gather_grad(K[:, q:], axis, 1)], dim=1)
         return K.reshape(*batch, *K.shape[1:])
 
     def _mean_values(self, theta, t):
@@ -373,7 +432,8 @@ class Engine:
         # -- weight update (eqs. 18-19); uses NEW mu_f, OLD muW --
         ratio, pred2 = self._weight_stats(y_c, variance, muW, mu_f, dSf)
         Aw = Kw_flat + torch.diag_embed(ratio)
-        Law, dAinv_w = _on_stack(_blocked.blocked_chol_diag_ainv, Aw)
+        Law, dAinv_w = self._weight_map(
+            lambda A: _on_stack(_blocked.blocked_chol_diag_ainv, A), Aw)
         mu_w_flat, dSw = self._sigma_apply(Law, Kw_flat, pred2, ratio,
                                            dAinv_w)
         mu_w = mu_w_flat.reshape(*batch, q, p, N).transpose(-3, -2)  # (p,q,N)
@@ -477,8 +537,15 @@ class Engine:
         q, N = self.spec.q, self.spec.N
         K_all = self._lattice(theta, t)
         _, _, _, jitters = unpack_parameters(self.spec, theta)
-        # ONE batched Cholesky of the whole q·(1+p) prior lattice
-        L_all = _blocked.cholesky_nan(K_all)
+        # ONE batched Cholesky of the whole q·(1+p) prior lattice (the
+        # weights' split over the lattice axis, when there is one)
+        if self._lat_axis() is None:
+            L_all = _blocked.cholesky_nan(K_all)
+        else:
+            (Lw,) = self._weight_map(
+                lambda K: (_blocked.cholesky_nan(K),), K_all[..., q:, :, :])
+            L_all = torch.cat([_blocked.cholesky_nan(K_all[..., :q, :, :]),
+                               Lw], dim=-3)
         Linv_nodes = None
         if q > 1:
             # L_f⁻¹ per node, for the cumulative-sumSigmaF cross traces

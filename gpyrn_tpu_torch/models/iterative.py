@@ -17,8 +17,9 @@ inference's device in float64:
 The combine formula and the noise conventions are ``engine.predict``'s
 (PREDICT_NUGGET 1.25e-12, jitter² added q times).  Like the port's
 ``predict``, the results are tensors on the inference's device, tstar a
-numpy array.  ``mesh=`` (the JAX package's multi-device solves) is not
-ported (ROADMAP A15).
+numpy array.  With ``mesh=`` each CG solve of ``predict_iterative`` runs
+through :func:`gpyrn_tpu_torch.parallel.cg_solve_sharded`, the matvec's
+rows split over the mesh's ``dp`` axis (called by every rank).
 """
 from __future__ import annotations
 
@@ -31,16 +32,10 @@ from gpyrn_tpu_torch.ops.iterative import (cg_solve, kernel_matvec,
                                            lanczos_vectors, msqrt_apply)
 from gpyrn_tpu_torch.ops.kernels import evaluate as _keval, is_nonstationary
 from gpyrn_tpu_torch.ops.linalg import PREDICT_NUGGET, cross_kernel_matrix
+from gpyrn_tpu_torch.parallel.iterative_sharded import cg_solve_sharded
 
 __all__ = ["predict_iterative", "LovePredictor", "build_love",
            "sample_iterative"]
-
-
-def _no_mesh(mesh, what):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) (the solves' matvec rows over a device mesh) "
-            "is not ported yet: ROADMAP A15")
 
 
 def _k0(structure, params):
@@ -69,15 +64,21 @@ def _gp_matvec(structure, params, t, v_row):
 
 
 def _gp_conditional_cg(structure, params, t, m_row, v_row, tstar, tol,
-                       maxiter, rhs_chunk, want_var):
+                       maxiter, rhs_chunk, want_var, mesh=None):
     """Mean and (optionally) variance of one GP's conditional
     N(K* A⁻¹ m, diag(K** − K* A⁻¹ K*ᵀ)), A = K + diag(v) + nugget·I, every
-    solve a Jacobi-preconditioned CG on chunked matvecs."""
+    solve a Jacobi-preconditioned CG on chunked matvecs; with ``mesh``,
+    :func:`cg_solve_sharded` over its ``dp`` axis."""
     k0 = _k0(structure, params)
     precond = k0 + v_row
     matvec = _gp_matvec(structure, params, t, v_row)
 
     def solve(rhs):
+        if mesh is not None:
+            x, _ = cg_solve_sharded(structure, params, t, rhs, mesh,
+                                    d_add=v_row, nugget=PREDICT_NUGGET,
+                                    tol=tol, maxiter=maxiter)
+            return x
         x, _ = cg_solve(matvec, rhs, tol=tol, maxiter=maxiter,
                         precond_diag=precond)
         return x
@@ -155,8 +156,8 @@ def predict_iterative(gprn, tstar=None, nn: int = 1000, tol: float = 1e-8,
     """Posterior predictive per output via matrix-free CG solves, with
     ``inference.predict``'s return convention ``(tstar, mean (n*, p),
     std (n*, p), (node_preds, weight_preds))``; std is zeros when
-    ``variances=False``."""
-    _no_mesh(mesh, "predict_iterative")
+    ``variances=False``.  ``mesh``: every solve's matvec rows split over
+    its ``dp`` axis (:func:`cg_solve_sharded`; every rank calls)."""
     _require_state(gprn)
     tstar = _tstar(gprn, tstar, nn)
     t, ts = gprn._tensor(gprn.time), gprn._tensor(tstar)
@@ -164,7 +165,7 @@ def predict_iterative(gprn, tstar=None, nn: int = 1000, tol: float = 1e-8,
     for structure, params, m_row, v_row in _lattice_rows(gprn):
         mean_b, var_b = _gp_conditional_cg(structure, params, t, m_row,
                                            v_row, ts, tol, maxiter,
-                                           rhs_chunk, variances)
+                                           rhs_chunk, variances, mesh)
         means.append(mean_b)
         vars_.append(var_b if var_b is not None
                      else torch.zeros_like(mean_b))

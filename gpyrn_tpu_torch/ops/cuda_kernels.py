@@ -36,6 +36,15 @@ computed outside it by differentiable tensor ops, so its gradient is
 ``trace(G)`` chained through ``k(0)``.  ``t`` takes no gradient (the JAX
 package differentiates θ only).
 
+:func:`kernel_matrix_slab_cuda` is B1's slab entry: rows [r0, r0 + n_rows)
+of the ``(n_pad, n_pad)`` matrix K(t, t) + jitter·I padded with identity
+past N, the row slab that one rank of the panel-sharded engine
+(``parallel/panel_fit.py``) holds; it replaces the JAX package's plain-jnp
+slab (``gpyrn_tpu/parallel/panel_fit.py``, ``_slab_kernel``), one block per
+32 × 32 tile with B1's element math, so each element equals B1's at the
+same place.  No gradient (no parallel path differentiates it);
+:func:`kernel_matrix_slab_ref` is its plain version.
+
 :func:`kernel_matrix_rows_cuda` builds a lattice, W rows of a list of S
 structures, straight into one ``(W, S, N, N)`` tensor (one B1 launch per
 slice, one B1′ launch per slice of the adjoint in the backward), which
@@ -75,6 +84,7 @@ __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_stack_ref", "kernel_matrix_stack_cuda",
            "kernel_matrix_rows_ref", "kernel_matrix_rows_cuda",
            "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda",
+           "kernel_matrix_slab_ref", "kernel_matrix_slab_cuda",
            "kernel_matrix_stack_op", "grad_blocks", "LAUNCHES",
            "reset_launch_counts"]
 
@@ -101,7 +111,8 @@ GRAD_BLOCKS_PER_SM = 8
 # take the plain path on every device, as in the JAX package.
 _LEAVES = frozenset(OPCODES) - {"+", "*"}
 
-# Launches of each kernel, counted where the kernel is launched.
+# Launches of each kernel, counted where the kernel is launched (B1's slab
+# entry counts as B1).
 LAUNCHES = {"kernel_matrix": 0, "kernel_matrix_grad": 0}
 
 
@@ -468,6 +479,83 @@ def kernel_matrix_grad_cuda(structure, params, t, G):
         raise ValueError(f"G must be an ({n}, {n}) tensor on t's device and "
                          f"in t's dtype")
     return _launch_grad(structure, params, t, G.contiguous())
+
+
+# ---- B1's slab entry: a row slab of the padded matrix ----------------------
+
+def kernel_matrix_slab_ref(structure, params, t, n_pad, r0, n_rows, jitter):
+    """Plain PyTorch version of :func:`kernel_matrix_slab_cuda`: the
+    registry formula on the slab's lags (and coordinates, for a
+    non-stationary structure), identity past N, ``jitter`` (a 0-d tensor)
+    on the diagonal inside the N × N matrix."""
+    n = t.shape[0]
+    rows = torch.arange(r0, r0 + n_rows, device=t.device)
+    cols = torch.arange(n_pad, device=t.device)
+    ti = t[rows.clamp(max=n - 1)][:, None]
+    tj = t[cols.clamp(max=n - 1)][None, :]
+    if _k.is_nonstationary(structure):
+        K = _k.evaluate(structure, params, r=ti - tj, t1=ti, t2=tj)
+    else:
+        K = _k.evaluate(structure, params, r=ti - tj)
+    K = torch.broadcast_to(K, (n_rows, n_pad))
+    eye = rows[:, None] == cols[None, :]
+    valid = (rows < n)[:, None] & (cols < n)[None, :]
+    K = torch.where(valid, K + torch.where(eye, jitter, 0.0), eye.to(K.dtype))
+    return K
+
+
+_SLAB_SYMBOLS = {torch.float64: "gpyrn_kernel_matrix_slab_f64",
+                 torch.float32: "gpyrn_kernel_matrix_slab_f32"}
+
+
+def _slab_argtypes():
+    """The slab entry's arguments: device, t, params, jitter, out, n,
+    n_pad, r0, n_rows, n_params, ops, offs, lhs, rhs, n_ops, stream."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return [i, p, p, p, p, i, i, i, i, i, p, p, p, p, i, p]
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_function(dtype):
+    fn = getattr(_build.load("kernel_matrix"), _SLAB_SYMBOLS[dtype])
+    fn.argtypes = _slab_argtypes()
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_matrix_slab_cuda(structure, params, t, n_pad, r0, n_rows, jitter):
+    """B1's slab entry on the card: rows ``[r0, r0 + n_rows)`` of the
+    ``(n_pad, n_pad)`` matrix K(t, t) + jitter·I, identity in the rows and
+    columns past N = ``len(t)``, as a new ``(n_rows, n_pad)`` tensor.
+    ``t`` and ``params`` as :func:`kernel_matrix_cuda`; ``jitter`` a 0-d
+    tensor on t's device in t's dtype, added on the diagonal inside the
+    N × N matrix only.  One launch on the current stream; no gradient."""
+    _check(structure, params, t)
+    n = t.shape[0]
+    n_pad, r0, n_rows = int(n_pad), int(r0), int(n_rows)
+    if not (n_pad >= n and 0 <= r0 and n_rows >= 1 and r0 + n_rows <= n_pad):
+        raise ValueError(f"the slab rows [{r0}, {r0 + n_rows}) must lie in "
+                         f"the padded matrix of {n_pad} >= N = {n} rows")
+    if (not isinstance(jitter, torch.Tensor) or jitter.device != t.device
+            or jitter.dtype != t.dtype or jitter.numel() != 1):
+        raise ValueError("jitter must be a 0-d tensor on t's device and in "
+                         "t's dtype")
+    _check_no_grad(t)
+    if params.requires_grad:
+        raise ValueError("kernel_matrix_slab_cuda takes no gradient")
+    out = torch.empty((n_rows, n_pad), dtype=t.dtype, device=t.device)
+    jitter = jitter.reshape(()).contiguous()
+    err = _slab_function(t.dtype)(
+        t.device.index, t.data_ptr(), params.data_ptr(), jitter.data_ptr(),
+        out.data_ptr(), n, n_pad, r0, n_rows, params.shape[0],
+        *_program_args(structure),
+        torch.cuda.current_stream(t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel_matrix_slab launch failed with CUDA "
+                           f"error {err} (N={n}, rows {r0}..{r0 + n_rows} of "
+                           f"{n_pad}, {t.dtype})")
+    LAUNCHES["kernel_matrix"] += 1
+    return out
 
 
 # ---- the custom operator of the exported program -------------------------

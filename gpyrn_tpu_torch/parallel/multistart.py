@@ -1,16 +1,20 @@
-"""Multi-start hyperparameter optimization on one device.
+"""Multi-start hyperparameter optimization.
 
-Port of the single-device part of :mod:`gpyrn_tpu.parallel.multistart`.
-The GPRN ELBO surface is multi-modal (node/weight amplitude degeneracies,
-period aliases), so a population of B restarts searches it at once: the
-restarts are the batch axis of the engine, and each step of the
-population is one batched sweep, one autograd pass through
-``Engine.elbo_fixed_batch`` over the B rows and one adam step in
-log-parameter space.  ``method='nm'`` runs the population of Nelder-Mead
-simplexes of ``inference.neldermead.nelder_mead_multistart``.
+Port of :mod:`gpyrn_tpu.parallel.multistart`.  The GPRN ELBO surface is
+multi-modal (node/weight amplitude degeneracies, period aliases), so a
+population of B restarts searches it at once: the restarts are the batch
+axis of the engine, and each step of the population is one batched
+sweep, one autograd pass through ``Engine.elbo_fixed_batch`` over the B
+rows and one adam step in log-parameter space.  ``method='nm'`` runs the
+population of Nelder-Mead simplexes of
+``inference.neldermead.nelder_mead_multistart``.
 
-The JAX package shards the population over a device mesh (``mesh=``);
-that is not ported here and raises.
+With ``mesh=`` (called by every rank of the mesh) the population is split
+over the mesh's ``dp`` axis: each rank runs its share of the restarts (the
+rows are independent, and adam is elementwise) and the results are
+gathered before the winner is chosen, on every rank alike.  A lattice-
+sharded engine (the inference's ``lattice_axis``) splits each restart's
+weight lattice over ``lat`` as well.
 """
 from __future__ import annotations
 
@@ -19,11 +23,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["make_multistart_step", "multistart_optimize", "MultistartState"]
+from gpyrn_tpu_torch.parallel.mesh import dp_rows
 
-# the ROADMAP item that holds the multi-device paths
-_MESH_MESSAGE = ("mesh= (the restart population sharded over a device "
-                 "mesh) is not ported yet: ROADMAP A15")
+__all__ = ["make_multistart_step", "multistart_optimize", "MultistartState"]
 
 
 class MultistartState(NamedTuple):
@@ -118,13 +120,14 @@ def multistart_optimize(gprn, n_restarts: int = 8, n_steps: int = 100,
     cap.  The inits are numpy's ``default_rng(seed)`` perturbations of
     the current parameters, restart 0 unperturbed, as in the JAX package.
 
+    ``mesh``: the restarts split over its ``dp`` axis when B divides by
+    it (else every rank runs them all); every rank returns the same.
+
     Returns a dict with the best ELBO (the variational cache refreshed at
     the winner), the best parameters, the per-restart best ELBOs and the
     winning restart (with ``method='nm'`` also ``nit`` and
     ``converged``).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
     rng = np.random.default_rng(seed)
     theta0 = gprn.get_parameters(include_frozen=True)
     frozen = gprn.frozen_mask
@@ -133,35 +136,39 @@ def multistart_optimize(gprn, n_restarts: int = 8, n_steps: int = 100,
         jitter_scale * rng.standard_normal((B, theta0.size)))
     inits[:, frozen] = theta0[frozen]
     inits[0] = theta0                       # keep one unperturbed restart
-
+    if method not in ("adam", "nm"):
+        raise ValueError(f"unknown method {method!r}")
     if method == "nm":
         return _multistart_nm(gprn, inits, frozen, theta0, n_steps,
-                              n_sweeps)
-    if method != "adam":
-        raise ValueError(f"unknown method {method!r}")
+                              n_sweeps, mesh)
 
     t, y, yerr2 = gprn._data()
     init_fn, step_fn, theta_of = make_multistart_step(
         gprn.engine, t, y, yerr2, n_sweeps=n_sweeps,
         learning_rate=learning_rate, free_mask=~frozen, base_theta=theta0)
-    state = init_fn(inits)
-    for _ in range(n_steps):
-        state = step_fn(state)
 
-    best_elbo = state.best_elbo.cpu().numpy()
+    def ascend(theta_inits):
+        state = init_fn(theta_inits)
+        for _ in range(n_steps):
+            state = step_fn(state)
+        return state.best_elbo, state.best_z
+
+    best_elbo, best_z = dp_rows(ascend, mesh, torch.as_tensor(inits))
+    best_elbo = best_elbo.cpu().numpy()
     best = int(np.argmax(best_elbo))
-    theta_best = theta_of(state.best_z[best]).cpu().numpy()
+    theta_best = theta_of(best_z[best]).cpu().numpy()
     gprn.set_parameters(theta_best)
     elbo, *_ = gprn.ELBOcalc(mu='init', var='init')
     return {"elbo": float(elbo), "theta": theta_best,
             "restart_elbos": best_elbo, "winner": best}
 
 
-def _multistart_nm(gprn, inits, frozen, theta0, n_steps, n_sweeps):
+def _multistart_nm(gprn, inits, frozen, theta0, n_steps, n_sweeps, mesh):
     """Population Nelder-Mead: one simplex per restart in lockstep.  The
     objective is −ELBO after ``n_sweeps`` sweeps from the heuristic
     'init' state of the candidate's own θ (each vertex self-contained),
-    all candidates of an iteration in one batched call."""
+    all candidates of an iteration in one batched call; the simplexes
+    split over ``mesh``'s ``dp`` axis as :func:`multistart_optimize`'s."""
     from gpyrn_tpu_torch.inference.neldermead import nelder_mead_multistart
 
     eng = gprn.engine
@@ -176,16 +183,19 @@ def _multistart_nm(gprn, inits, frozen, theta0, n_steps, n_sweeps):
         return -eng.elbo_fixed_batch(theta, t, y, yerr2, mu0, var0,
                                      n_sweeps)
 
-    res, _ = nelder_mead_multistart(None, gprn._tensor(inits[:, ~frozen]),
-                                    max_iter=n_steps,
-                                    batched_f=objective_batch)
-    elbos = -res.fun.cpu().numpy()
+    def simplexes(x0):
+        res, _ = nelder_mead_multistart(None, x0, max_iter=n_steps,
+                                        batched_f=objective_batch)
+        return res.fun, res.x, res.nit, res.converged
+
+    fun, x, nit, converged = dp_rows(simplexes, mesh,
+                                     gprn._tensor(inits[:, ~frozen]))
+    elbos = -fun.cpu().numpy()
     best = int(np.argmax(elbos))
     theta_best = theta0.copy()
-    theta_best[~frozen] = res.x[best].cpu().numpy()
+    theta_best[~frozen] = x[best].cpu().numpy()
     gprn.set_parameters(theta_best)
     elbo, *_ = gprn.ELBOcalc(mu='init', var='init')
     return {"elbo": float(elbo), "theta": theta_best,
             "restart_elbos": elbos, "winner": best,
-            "nit": res.nit.cpu().numpy(),
-            "converged": res.converged.cpu().numpy()}
+            "nit": nit.cpu().numpy(), "converged": converged.cpu().numpy()}

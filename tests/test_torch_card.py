@@ -733,3 +733,54 @@ def test_artifact_exported_on_card_equals_predict(cuda, tmp_path):
         mean, var, (npred, wpred) = g._Prediction(tstar=tstar, separate=True)
         for got, ref in zip(out, (mean, var, npred, wpred)):
             torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+
+# B1's slab entry: a single leaf, a pair, a composite (the interpreter);
+# N=300 padded to 384, the first 96-row slab and the ragged last one
+SLAB_CASES = [CASES[1], CASES[4], CASES[6]]
+SLAB_N, SLAB_PAD, SLAB_ROWS = 300, 384, 96
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("structure,pars", SLAB_CASES)
+def test_slab_entry_equals_b1_rows_and_twin(structure, pars, dtype, cuda):
+    """Inside the N × N matrix the slab equals the same rows of B1's full
+    matrix bit for bit (jitter 1e-6 on the diagonal); identity in the
+    padding; the plain version at B1's tolerances."""
+    rtol, atol = (1e-12, 1e-14) if dtype == torch.float64 else (2e-6, 1e-6)
+    t = torch.tensor(_times(SLAB_N), dtype=dtype, device=cuda)
+    p = torch.tensor(pars, dtype=dtype, device=cuda)
+    jit = torch.tensor(1e-6, dtype=dtype, device=cuda)
+    full = ck.kernel_matrix_cuda(structure, p, t, 1e-6, 0.0)
+    k0 = abs(float(tk.evaluate(structure, p, r=torch.zeros(
+        (), dtype=dtype, device=cuda))))
+    eye = torch.eye(SLAB_PAD, dtype=dtype, device=cuda)
+    for r0 in (0, SLAB_PAD - SLAB_ROWS):
+        before = ck.LAUNCHES["kernel_matrix"]
+        got = ck.kernel_matrix_slab_cuda(structure, p, t, SLAB_PAD, r0,
+                                         SLAB_ROWS, jit)
+        assert ck.LAUNCHES["kernel_matrix"] == before + 1
+        torch.cuda.synchronize()
+        nv = max(0, min(SLAB_ROWS, SLAB_N - r0))
+        assert torch.equal(got[:nv, :SLAB_N], full[r0:r0 + nv])
+        rows = eye[r0:r0 + SLAB_ROWS]
+        assert torch.equal(got[:, SLAB_N:], rows[:, SLAB_N:])
+        assert torch.equal(got[nv:], rows[nv:])
+        ref = ck.kernel_matrix_slab_ref(structure, p, t, SLAB_PAD, r0,
+                                        SLAB_ROWS, jit)
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol * k0)
+
+
+@pytest.mark.cuda
+def test_panel_refine_on_one_nccl_rank_equals_lean(cuda):
+    """The panel engine on a one-rank NCCL mesh, its slabs from B1's slab
+    entry, against the lean engine: ELBO relative 1e-9, state 1e-8."""
+    from gpyrn_tpu_torch.parallel.mesh import spawn
+    from tests.torch_parallel_jobs import nccl_panel_job
+    (out,) = spawn(nccl_panel_job, 1, "nccl", "cuda", timeout=300.0)
+    (e_l, mu_l, var_l), (e_p, mu_p, var_p) = out["lean"], out["panel"]
+    assert out["backend"] == "nccl" and out["launches"] > 0
+    assert abs(float(e_p) - float(e_l)) <= 1e-9 * abs(float(e_l))
+    for a, b in ((mu_p, mu_l), (var_p, var_l)):
+        assert np.max(np.abs(a - b)) <= 1e-8 * (1 + np.max(np.abs(b)))

@@ -17,7 +17,7 @@ rank 10 takes the CG bulk (``mixed_info['bulk'] == 'cg'``), sets
 (a float32 bulk of 20 sweeps, whose rounding differs between the
 runtimes, then three float64 polish sweeps); the
 ``cg_engine`` is rebuilt when ``cg_rank`` or ``cg_tol`` change; ``mesh=``
-raises, naming ROADMAP A15.
+on a one-rank mesh gives the unsharded fit.
 
 The JAX package compiles each fit anew, so its results are kept in
 ``torch_cg_fit_reference.json`` (written by ``JAX_PLATFORMS=cpu python -m
@@ -37,6 +37,8 @@ import gpyrn_tpu_torch as gt
 from gpyrn_tpu_torch.convert import inference_from_jax
 from gpyrn_tpu_torch.models import cg_fit as tcg
 from gpyrn_tpu_torch.models import gprn as tg
+
+from tests.torch_parallel_jobs import one_rank_mesh
 
 torch.set_num_threads(1)
 
@@ -199,9 +201,20 @@ def test_cg_engine_is_rebuilt_with_its_settings():
 
 
 def test_mesh_raises_naming_a15():
-    spec, _, _ = _arrays(gt, 1, 3)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tcg.make_cg_fit(spec, mesh=object())
+    """``mesh=`` on a one-rank mesh: every matvec through the rank's slab
+    and a gather, the unsharded fit's sweeps and state."""
+    spec, theta, data = _arrays(gt, 1, 3)
+    theta, t, y, yerr2 = (torch.tensor(a, dtype=torch.float64)
+                          for a in (theta, *data))
+    mu0, var0 = tg.Engine(spec).init_mu_var(theta, y)
+    args = (theta, t, y, yerr2, mu0, var0, *RUNS["sweeps"])
+    ref = tcg.make_cg_fit(spec, rank=RANK, cg_tol=CG_TOL).fit_state_cg(*args)
+    with one_rank_mesh() as mesh:
+        got = tcg.make_cg_fit(spec, rank=RANK, cg_tol=CG_TOL,
+                              mesh=mesh).fit_state_cg(*args)
+    assert got[2:4] == ref[2:4]
+    assert _state_err(got[0], ref[0]) <= 1e-12
+    assert _state_err(got[1], ref[1]) <= 1e-12
 
 
 @pytest.mark.slow

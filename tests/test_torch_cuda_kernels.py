@@ -282,6 +282,29 @@ def test_c_entry_points_take_the_wrappers_arguments():
                      r"/ TILE\)", src)
 
 
+def test_slab_entry_takes_the_wrappers_arguments():
+    """B1's slab entry points declare what ``kernel_matrix_slab_cuda``
+    passes, launch the slab kernel on a 2-D grid of tiles (no tile
+    pairs), and the wrapper refuses a CPU tensor (the CPU's path is
+    ``kernel_matrix_slab_ref``)."""
+    import ctypes
+    src = CU_SOURCE.read_text()
+    for symbol in ck._SLAB_SYMBOLS.values():
+        decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src,
+                         re.DOTALL).group(1)
+        kinds = [ctypes.c_void_p if "*" in arg else ctypes.c_int
+                 for arg in decl.split(",")]
+        assert kinds == ck._slab_argtypes(), symbol
+    assert re.search(r"kernel_matrix_slab_kernel<T, MODE><<<grid,", src)
+    assert "const int I = blockIdx.y, J = blockIdx.x;" in src
+    t = torch.linspace(0.0, 10.0, 9, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ck.kernel_matrix_slab_cuda(("SE",), torch.tensor([1.0, 2.0],
+                                                        dtype=torch.float64),
+                                   t, 12, 0, 4, torch.tensor(0.0,
+                                                             dtype=t.dtype))
+
+
 def test_ptxas_report_is_parsed():
     from gpyrn_tpu_torch.ops import _build
     log = """ptxas info    : 0 bytes gmem

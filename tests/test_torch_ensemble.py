@@ -15,7 +15,8 @@ gpyrn_tpu.
   host loop's result; the device chain runs with the port's priors and
   is reproducible from its seed.
 * ``EnsembleResult`` files load in either package; the modes that are
-  not ported raise."""
+  not ported raise; ``mesh=`` on a one-rank mesh gives the unsharded
+  device chain, and with the host loop raises."""
 import numpy as np
 import pytest
 import scipy.stats as st
@@ -27,6 +28,8 @@ from gpyrn_tpu.inference import priors as jpri
 from gpyrn_tpu_torch.convert import inference_from_jax
 from gpyrn_tpu_torch.inference import ensemble as tens
 from gpyrn_tpu_torch.inference import priors as tpri
+
+from tests.torch_parallel_jobs import one_rank_mesh
 
 torch.set_num_threads(1)
 
@@ -273,8 +276,17 @@ def test_modes_that_are_not_ported_raise():
     priors = _port_priors(g)
     with pytest.raises(ImportError, match="emcee"):
         port.mcmc(priors, sampler="emcee")
-    with pytest.raises(NotImplementedError, match="A15"):
-        port.mcmc(priors, mesh=object())
+    # mesh=: the device chain over a one-rank mesh is the unsharded one;
+    # the host loop cannot take a mesh
+    kw = dict(p0=g.get_parameters(), niter=2, elbo_max_iter=10, seed=3,
+              check_every=2)
+    ref = port.mcmc(priors, **kw)
+    with one_rank_mesh() as mesh:
+        res = port.mcmc(priors, mesh=mesh, **kw)
+        with pytest.raises(ValueError, match="device chain"):
+            port.mcmc(priors, mesh=mesh, device_chain=False, **kw)
+    np.testing.assert_array_equal(res.chain, ref.chain)
+    np.testing.assert_array_equal(res.log_prob, ref.log_prob)
     with pytest.raises(ValueError, match="missing priors"):
         port.mcmc({"node1.theta": priors["node1.theta"]})
     with pytest.raises(ValueError, match="free_names"):

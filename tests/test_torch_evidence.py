@@ -3,7 +3,8 @@ gpyrn_tpu_torch against gpyrn_tpu.
 
 ``batch_elbo`` (every row fitted from the heuristic start in one
 ``Engine.elbo_fit_batch`` call) against the JAX package's vmapped fit on
-a small model (q=1, p=2, N=20): ELBO relative 1e-9.  The estimators, the
+a small model (q=1, p=2, N=20): ELBO relative 1e-9; with ``mesh=`` on a
+one-rank mesh, the same values.  The estimators, the
 port's own copy of the JAX package's numpy code, against the JAX
 package's on the same samples and the same random streams: equal."""
 import numpy as np
@@ -14,6 +15,8 @@ import gpyrn_tpu as gj
 from gpyrn_tpu.inference import evidence as jev
 from gpyrn_tpu_torch.convert import inference_from_jax
 from gpyrn_tpu_torch.inference import evidence as tev
+
+from tests.torch_parallel_jobs import one_rank_mesh
 
 torch.set_num_threads(1)
 
@@ -48,8 +51,11 @@ def test_batch_elbo_matches_jax():
     # one row alone: the same value as in the batch
     np.testing.assert_allclose(tev.batch_elbo(port, thetas[2], max_iter=40),
                                got[2:3], rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tev.batch_elbo(port, thetas, mesh=object())
+    # mesh=: the rows over a one-rank mesh's dp axis, the same values
+    with one_rank_mesh() as mesh:
+        np.testing.assert_allclose(
+            tev.batch_elbo(port, thetas, max_iter=40, mesh=mesh), got,
+            rtol=1e-12)
 
 
 # a Gaussian likelihood and prior over 2-D parameter batches

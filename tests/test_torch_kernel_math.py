@@ -18,7 +18,12 @@ held against the plain PyTorch versions on the CPU:
   sums run in another order; by the interpreter and by the picked instance;
 * the symmetric walk: each lag once, weighted ``G[i,j] + G[j,i]``, against
   the two-sided sum, to the same tolerance;
-* the tile-pair index map: every pair I ≥ J exactly once, in order.
+* the tile-pair index map: every pair I ≥ J exactly once, in order;
+* B1's slab entry (rows [r0, r0 + n_rows) of the padded matrix): the
+  element rule ``slab_element`` gives the full matrix's rows bit for bit
+  inside the N × N matrix, the jitter on its diagonal only, identity in
+  the padded rows and columns, and the plain version
+  ``kernel_matrix_slab_ref`` to the forward tolerance.
 
 The times hold a repeated value, so r = 0 occurs off the diagonal as well
 as on it.  The kernels themselves run only on the card
@@ -158,7 +163,46 @@ static void grad(const T* t, const T* par, const T* G, T* out, int n,
   }
 }
 
+// B1's slab entry, element by element: rows [r0, r0 + n_rows) of the
+// n_pad x n_pad matrix, each element from the picked instance and
+// slab_element's rule
+template <typename T>
+static void slab(const T* t, const T* par, T jit, T* out, int n, int n_pad,
+                 int r0, int n_rows, int n_params, const int* ops,
+                 const int* offs, const int* lhs, const int* rhs,
+                 int n_ops) {
+  const Program p = program(ops, offs, lhs, rhs, n_ops);
+  const Setup<T> s(p, par, n_params);
+  const int mode = program_mode(p);
+  for (int li = 0; li < n_rows; ++li)
+    for (int j = 0; j < n_pad; ++j) {
+      const int i = r0 + li;
+      const T r = (i < n ? t[i] : T(0)) - (j < n ? t[j] : T(0));
+      T v;
+#define ARGS p, s.p0, s.c0, s.p1, s.c1, par, s.cst, r
+#define CASE(OP) case OP: v = program_value<T, OP>(ARGS); break;
+      switch (mode) {
+        FOR_EACH_LEAF(CASE)
+        case MODE_PAIR: v = program_value<T, MODE_PAIR>(ARGS); break;
+        default: v = program_value<T, MODE_ANY>(ARGS); break;
+      }
+#undef CASE
+#undef ARGS
+      out[(size_t)li * n_pad + j] = slab_element<T>(i, j, n, v, jit);
+    }
+}
+
 extern "C" {
+void slab_f64(const double* t, const double* par, double jit, double* out,
+              int n, int n_pad, int r0, int n_rows, int m, const int* o,
+              const int* f, const int* l, const int* r, int k) {
+  slab<double>(t, par, jit, out, n, n_pad, r0, n_rows, m, o, f, l, r, k);
+}
+void slab_f32(const float* t, const float* par, float jit, float* out,
+              int n, int n_pad, int r0, int n_rows, int m, const int* o,
+              const int* f, const int* l, const int* r, int k) {
+  slab<float>(t, par, jit, out, n, n_pad, r0, n_rows, m, o, f, l, r, k);
+}
 void matrix_f64(const double* t, const double* par, double* out, int n,
                 int m, const int* o, const int* f, const int* l,
                 const int* r, int k, int picked) {
@@ -347,3 +391,45 @@ def test_tile_pair_index_map_at_the_largest_matrix(host_lib):
                             (first + row, (row, row))):
             host_lib.tile_pair_at(p, ctypes.byref(I), ctypes.byref(J))
             assert (I.value, J.value) == expected, p
+
+
+# slabs of a 33-row matrix padded to 48: the first of four 12-row slabs,
+# one that straddles N, the last (all padding), and one covering it all
+SLABS = ((0, 12), (24, 12), (36, 12), (0, 48))
+SLAB_CASES = [c for c in CASES if c[0] in
+              (("QP",), ("+", ("SE",), ("M32",)))] + [CASES[-1]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("structure,pars", SLAB_CASES,
+                         ids=[str(c[0]) for c in SLAB_CASES])
+def test_slab_index_map(structure, pars, dtype, host_lib):
+    fwd_tol, _ = TOLS[dtype]
+    sfx = "f64" if dtype == torch.float64 else "f32"
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    t, _ = _inputs(dtype, len(pars))
+    par = np.asarray(pars, dtype=t.dtype)
+    code = _code(structure)
+    n_pad, jit = 48, npdt(1e-6)
+    cjit = ctypes.c_double(jit) if sfx == "f64" else ctypes.c_float(jit)
+    K = np.zeros((N, N), dtype=t.dtype)
+    getattr(host_lib, f"matrix_{sfx}")(_ptr(t), _ptr(par), _ptr(K), N,
+                                       len(pars), *code, PICKED)
+    K[np.arange(N), np.arange(N)] += jit
+    fn = getattr(host_lib, f"slab_{sfx}")
+    for r0, rows in SLABS:
+        out = np.full((rows, n_pad), np.nan, dtype=t.dtype)
+        fn(_ptr(t), _ptr(par), cjit, _ptr(out), N, n_pad, r0, rows,
+           len(pars), *code)
+        nv = max(0, min(rows, N - r0))
+        # inside the matrix: the full matrix's rows, jitter and all
+        np.testing.assert_array_equal(out[:nv, :N], K[r0:r0 + nv])
+        # identity in the padding, nothing else
+        eye = np.eye(n_pad, dtype=t.dtype)[r0:r0 + rows]
+        np.testing.assert_array_equal(out[:, N:], eye[:, N:])
+        np.testing.assert_array_equal(out[nv:], eye[nv:])
+        ref = ck.kernel_matrix_slab_ref(structure, torch.tensor(par),
+                                        torch.tensor(t), n_pad, r0, rows,
+                                        torch.tensor(jit)).numpy()
+        assert np.max(np.abs(out - ref)) <= fwd_tol * np.max(np.abs(ref))

@@ -18,7 +18,7 @@ python -m tests.test_torch_multistart``); the ``slow`` test
 ``test_reference_is_the_jax_packages`` recomputes them with the JAX
 package and holds the file to them.
 
-``mesh=`` raises, naming the ROADMAP item."""
+``mesh=`` on a one-rank mesh runs the unsharded population."""
 import json
 import os
 
@@ -30,6 +30,8 @@ import gpyrn_tpu as gj
 from gpyrn_tpu.parallel import multistart as jms
 from gpyrn_tpu_torch.convert import inference_from_jax
 from gpyrn_tpu_torch.parallel import multistart as tms
+
+from tests.torch_parallel_jobs import one_rank_mesh
 
 torch.set_num_threads(1)
 
@@ -135,9 +137,17 @@ def test_reference_is_the_jax_packages(method):
 
 
 def test_mesh_and_unknown_method_raise():
+    """``mesh=`` on a one-rank mesh runs the unsharded population; an
+    unknown method raises."""
     port = inference_from_jax(_jax_model(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tms.multistart_optimize(port, mesh=object())
+    ref = tms.multistart_optimize(port, **SETTINGS)
+    port = inference_from_jax(_jax_model(), device="cpu")
+    with one_rank_mesh() as mesh:
+        got = tms.multistart_optimize(port, mesh=mesh, **SETTINGS)
+    np.testing.assert_allclose(got["restart_elbos"], ref["restart_elbos"],
+                               rtol=1e-12)
+    np.testing.assert_allclose(got["theta"], ref["theta"], rtol=1e-12)
+    assert got["winner"] == ref["winner"]
     with pytest.raises(ValueError, match="unknown method"):
         tms.multistart_optimize(port, method="lbfgs")
 

@@ -14,7 +14,8 @@ state (``inference_from_jax``):
 * ``sample_iterative`` with one numpy ``default_rng`` seed on both sides:
   the same draws, the samples within 1e-9 of their max;
 * both against the port's dense ``predict`` (1e-6 at CG tol 1e-12 and
-  rank N for LOVE); ``mesh=`` raises naming ROADMAP A15; no state raises.
+  rank N for LOVE); ``mesh=`` on a one-rank mesh predicts the same; no
+  state raises.
 
 The JAX package's results are kept in
 ``torch_predict_iterative_reference.json`` (written by
@@ -31,6 +32,8 @@ import gpyrn_tpu as gj
 from gpyrn_tpu.models import iterative as jit_
 from gpyrn_tpu_torch.convert import inference_from_jax
 from gpyrn_tpu_torch.models import iterative as tit
+
+from tests.torch_parallel_jobs import one_rank_mesh
 
 torch.set_num_threads(1)
 
@@ -188,9 +191,16 @@ def test_iterative_and_love_equal_the_dense_predict(port):
 
 
 def test_mesh_and_missing_state_raise(reference):
+    """``mesh=`` on a one-rank mesh (every solve through
+    ``cg_solve_sharded``) predicts what the unsharded call does; no state
+    raises."""
     g = _port_model("q1p3", reference)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tit.predict_iterative(g, nn=NN, mesh=object())
+    _, mean, std, _ = tit.predict_iterative(g, nn=NN, **PREDICT)
+    with one_rank_mesh() as mesh:
+        _, mean_m, std_m, _ = tit.predict_iterative(g, nn=NN, mesh=mesh,
+                                                    **PREDICT)
+    _close(mean_m, mean, PREDICT_TOL)
+    _close(std_m, std, PREDICT_TOL)
     g._mu = g._var = None
     with pytest.raises(ValueError, match="ELBOcalc"):
         tit.predict_iterative(g, nn=NN)

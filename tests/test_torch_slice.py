@@ -192,6 +192,8 @@ def test_imports_and_fits_without_jax():
                                                neldermead, priors)
         from gpyrn_tpu_torch.models import cg_fit, iterative, svi
         from gpyrn_tpu_torch.ops import iterative as ops_iterative
+        from gpyrn_tpu_torch.parallel import (iterative_sharded, mesh,
+                                              panel, panel_fit)
         from gpyrn_tpu_torch import datasets, serving
         from gpyrn_tpu_torch.utils import astro, plots, profiling
         t = np.linspace(0, 20, 12)
