@@ -62,8 +62,51 @@
 //     same thread takes them one by one.  The ragged edge is masked, not
 //     padded.
 //
-// Neither kernel holds a matrix product (nothing for wgmma), and a tile's
-// whole input is two length-32 slices of t (nothing for TMA to fetch).
+// Neither B1 nor B1' holds a matrix product (nothing for wgmma), and a
+// tile's whole input is two length-32 slices of t (nothing for TMA to
+// fetch).
+//
+// B1's product entry (kernel_matvec_kernel, kernel_matvec_tiled_kernel):
+//
+//     y[i, c] = sum_j<N k(t_i - t_j) V[j, c] + nugget V[i, c],
+//               i in [r0, r0 + n_rows), c < m,
+//
+// the matrix-free kernel matvec, without K ever in device memory.  It
+// replaces gpyrn_tpu/ops/iterative.py::kernel_matvec, which the JAX package
+// leaves to XLA (row chunks of K, each written out and multiplied), and
+// takes the slab entry's element rule: each element is program_value of
+// B1's instance for the structure, with B1's leaf_consts, so K has B1's
+// bits.  What bounds it: for a few columns the element's FP pipe (tens to
+// hundreds of instructions an element) against 3 N values of traffic for
+// m = 1; for many, the m multiply-adds of each element.  So:
+//
+//   * Every element is evaluated once per call, in registers, and is never
+//     stored.
+//   * m <= MV_CAP (the register path): one thread per row; a block of
+//     MV_THREADS rows walks its group of columns in steps of MV_STAGE,
+//     t and V of the next step copied into shared memory with cp.async
+//     while the current one is read (two buffers).  A row's m sums stay in
+//     registers.
+//   * Sums in a fixed tree: a fresh partial over each MV_SUM columns, the
+//     partials of a column group added in order, the groups added in order
+//     by a second kernel (kernel_matvec_sum).  A float32 sum over 50,000
+//     terms so rounds like a tree, not like one long chain.  The product's
+//     multiply-add is one fma (__fma_rn); the element keeps B1's rounding.
+//   * Filling the card: the columns split into groups (mv_group_cols) so
+//     that N's row tiles times the groups come to about MV_TARGET_BLOCKS
+//     blocks.  The split is chosen from N alone, never from r0 or n_rows,
+//     so a rank's slab of rows gets the bits of the same rows of the whole
+//     product.  No atomics: the same bits from run to run.
+//   * m > MV_CAP (the tiled path): a block of MT_ROWS rows evaluates a
+//     tile of K (mt_cols columns) once into shared memory and multiplies
+//     it against every chunk of MT_M columns of V in turn: in double on
+//     the tensor cores (mma.sync m8n8k4, FP64), in float on the CUDA cores
+//     (4 x 4 outputs a thread from 16-byte loads; TF32 would not keep
+//     float's digits).  A tile's sums of each chunk go to y and back, in
+//     the order of the tiles (no split: the chunks of V fill the card).
+//     Every element is still evaluated once, whatever m.
+//
+// Not here: each lag once (K's symmetry), which needs a scatter to y_j.
 //
 // The kernel structure arrives as a postfix program (one op code and one
 // parameter offset per entry; leaves push k(r), ADD / MUL combine two
@@ -75,12 +118,14 @@
 // operation rounds as the plain version's does and the two agree to the
 // last bits of the math library's exp / sin.
 //
-// Without __CUDACC__ only the element math, the tile-pair index map and
-// the slab's element rule below are compiled (plain C++): the CPU tests
-// build them with the host compiler and hold the kernels' arithmetic
-// against autograd of the plain version.
+// Without __CUDACC__ only the element math, the tile-pair index map, the
+// slab's element rule and the product entry's per-thread steps below are
+// compiled (plain C++): the CPU tests build them with the host compiler and
+// hold the kernels' arithmetic against autograd of the plain version, and
+// the product's tiles and sums against its plain version.
 
 #ifdef __CUDACC__
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #else
@@ -783,6 +828,263 @@ __host__ __device__ __forceinline__ T slab_element(int i, int j, int n, T k,
   return i == j ? k + jit : k;
 }
 
+// ---- B1's product entry: the per-thread steps, shared with the host ------
+//
+// Sizes.  MV_CAP must equal MATVEC_CAP in cuda_kernels.py.
+#define MV_THREADS 128          // register path: rows of a block, one a thread
+#define MV_STAGE 256            // register path: columns staged per step
+#define MV_SUM 32               // register path: columns of a fresh partial
+#define MV_CAP 8                // the register path takes m <= MV_CAP
+#define MV_TARGET_BLOCKS 4096   // blocks the column split aims at
+#define MT_ROWS 64              // tiled path: rows of a block
+#define MT_TILE_BYTES 65536     // tiled path: the K tile (MT_ROWS x mt_cols)
+#define MT_M 64                 // tiled path: columns of V per chunk
+#define MT_K 32                 // tiled path: rows of V staged at a time
+// tiled path: the strides of the K tile's columns and of the staged rows
+// of V, 4 past MT_ROWS and MT_M so that the float64 product's operand
+// loads (8 rows x 4 columns a warp) meet no bank twice and the float
+// product's 16-byte loads stay aligned
+#define MT_LD (MT_ROWS + 4)
+#define MT_VLD (MT_M + 4)
+#define MT_THREADS 256          // tiled path: threads of a block, 16 x 16
+
+__device__ __forceinline__ float mv_fma(float a, float b, float c) {
+#ifdef __CUDACC__
+  return __fmaf_rn(a, b, c);
+#else
+  return std::fma(a, b, c);
+#endif
+}
+__device__ __forceinline__ double mv_fma(double a, double b, double c) {
+#ifdef __CUDACC__
+  return __fma_rn(a, b, c);
+#else
+  return std::fma(a, b, c);
+#endif
+}
+
+// The register path's column groups, from N alone: about MV_TARGET_BLOCKS
+// blocks over the row tiles of all N rows, whole steps of MV_STAGE columns.
+__host__ __device__ __forceinline__ int mv_group_cols(int n) {
+  const long long row_tiles = (n + MV_THREADS - 1) / MV_THREADS;
+  const long long want = (MV_TARGET_BLOCKS + row_tiles - 1) / row_tiles;
+  long long cols = (n + want - 1) / want;
+  cols = (cols + MV_STAGE - 1) / MV_STAGE * MV_STAGE;
+  return (int)cols;
+}
+
+__host__ __device__ __forceinline__ int mv_groups(int n) {
+  const int cols = mv_group_cols(n);
+  return (n + cols - 1) / cols;
+}
+
+// Group g's columns [*j0, *j1).
+__host__ __device__ __forceinline__ void mv_group_range(int n, int g, int* j0,
+                                                        int* j1) {
+  const int cols = mv_group_cols(n);
+  *j0 = g * cols;
+  *j1 = n < *j0 + cols ? n : *j0 + cols;
+}
+
+// The last two roundings of y: the sum, then the nugget's term.
+template <typename T>
+__device__ __forceinline__ T mv_add_nugget(T s, T nugget, T v) {
+  return s + nugget * v;
+}
+
+// Register path, one thread on one staged step: row time ti against the
+// cnt <= MV_STAGE columns ts[0 .. cnt) and their values vs[j * W + c];
+// acc[c] gains one partial sum per MV_SUM columns, each taken from 0.
+template <typename T, int MODE, int W>
+__device__ __forceinline__ void mv_row_stage(
+    const Program& prog, const T* p0, const T* c0, const T* p1, const T* c1,
+    const T* par, const T* cst, T ti, const T* ts, const T* vs, int cnt,
+    T* acc) {
+  for (int s = 0; s < cnt; s += MV_SUM) {
+    const int e = cnt < s + MV_SUM ? cnt : s + MV_SUM;
+    T part[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) part[c] = T(0);
+    for (int j = s; j < e; ++j) {
+      const T k = program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                         ti - ts[j]);
+#pragma unroll
+      for (int c = 0; c < W; ++c) part[c] = mv_fma(k, vs[j * W + c], part[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = acc[c] + part[c];
+  }
+}
+
+// The groups' partial sums of one output, partial[g * stride], in order.
+template <typename T>
+__device__ __forceinline__ T mv_sum_groups(const T* partial, int groups,
+                                           size_t stride) {
+  T s = partial[0];
+  for (int g = 1; g < groups; ++g) s = s + partial[(size_t)g * stride];
+  return s;
+}
+
+// Tiled path: the columns of the K tile, 64 KB of it in shared memory
+// (256 in float, 128 in double).
+template <typename T>
+__host__ __device__ __forceinline__ constexpr int mt_cols() {
+  return MT_TILE_BYTES / (MT_ROWS * (int)sizeof(T));
+}
+
+// Tiled path, thread tid's part of the K tile, stored column by column:
+// kt[j * MT_LD + r] = k(ti[r] - tj[j]), thread tid taking row
+// tid % MT_ROWS of every fourth column; 0 past the tile's cnt columns.
+template <typename T, int MODE>
+__device__ __forceinline__ void mt_eval(const Program& prog, const T* p0,
+                                        const T* c0, const T* p1, const T* c1,
+                                        const T* par, const T* cst,
+                                        const T* ti, const T* tj, int cnt,
+                                        int tid, T* kt) {
+  const int r = tid % MT_ROWS;
+  const T tir = ti[r];
+  for (int j = tid / MT_ROWS; j < mt_cols<T>(); j += MT_THREADS / MT_ROWS) {
+    kt[j * MT_LD + r] =
+        j < cnt ? program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                         tir - tj[j])
+                : T(0);
+  }
+}
+
+// Four neighbouring values from shared memory (16-byte aligned on the
+// card: one or two 16-byte loads).
+__device__ __forceinline__ void load4(const float* p, float* v) {
+#ifdef __CUDACC__
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+#else
+  for (int u = 0; u < 4; ++u) v[u] = p[u];
+#endif
+}
+__device__ __forceinline__ void load4(const double* p, double* v) {
+#ifdef __CUDACC__
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = y.x;
+  v[3] = y.y;
+#else
+  for (int u = 0; u < 4; ++u) v[u] = p[u];
+#endif
+}
+
+// Tiled path: where thread tid's 16 outputs acc[a][b] lie in the block's
+// MT_ROWS x MT_M chunk.  In float a thread holds rows ty * 4 + a and
+// columns tx * 4 + b (tid = 16 ty + tx); in double, the accumulators of
+// the tensor cores' 8 x 8 tiles (mma m8n8k4): warp w = 4 wn + wm takes
+// rows 16 wm + [0, 16) and columns 32 wn + [0, 32), two by four tiles;
+// lane l holds row l / 4 and columns 2 (l % 4) + [0, 2) of each.
+template <typename T>
+__host__ __device__ __forceinline__ int mt_row(int tid, int a, int b) {
+  if (sizeof(T) == 4) return tid / 16 * 4 + a;
+  const int f = a * 4 + b, w = tid / 32, lane = tid % 32;
+  return 16 * (w % 4) + 8 * (f / 8) + lane / 4;
+}
+template <typename T>
+__host__ __device__ __forceinline__ int mt_col(int tid, int a, int b) {
+  if (sizeof(T) == 4) return tid % 16 * 4 + b;
+  const int f = a * 4 + b, w = tid / 32, lane = tid % 32;
+  return 32 * (w / 4) + 8 * (f / 2 % 4) + 2 * (lane % 4) + f % 2;
+}
+
+// Tiled path, float: thread tid's 4 x 4 outputs gain, in order, the
+// products of the tile's columns [j0, j0 + cnt) of kt with V's staged rows
+// vs[jj * MT_VLD + col], jj = j - j0 (CUDA cores, 16-byte loads).
+__device__ __forceinline__ void mt_product(const float* kt, const float* vs,
+                                           int j0, int cnt, int tid,
+                                           float acc[4][4]) {
+  const int ty = tid / 16, tx = tid % 16;
+  for (int jj = 0; jj < cnt; ++jj) {
+    float kv[4], vv[4];
+    load4(kt + (j0 + jj) * MT_LD + ty * 4, kv);
+    load4(vs + jj * MT_VLD + tx * 4, vv);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = mv_fma(kv[a], vv[b], acc[a][b]);
+  }
+}
+
+// Tiled path, double: the same sums by the tensor cores, four columns of
+// the tile a step (mma.sync m8n8k4 in float64); the columns past cnt, up
+// to a multiple of 4, are 0 in kt and vs.  Without the card, each output's
+// four products of a step are taken by fma in order.
+__device__ __forceinline__ void mt_product(const double* kt,
+                                           const double* vs, int j0,
+                                           int cnt, int tid,
+                                           double acc[4][4]) {
+  const int w = tid / 32, lane = tid % 32;
+  const int wm = w % 4, wn = w / 4, r = lane / 4, k = lane % 4;
+  double* c = &acc[0][0];  // c[8 mt + 2 nt + e]
+  for (int jj = 0; jj < cnt; jj += 4) {
+#ifdef __CUDACC__
+    double a[2], b[4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      a[mt] = kt[(j0 + jj + k) * MT_LD + 16 * wm + 8 * mt + r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      b[nt] = vs[(jj + k) * MT_VLD + 32 * wn + 8 * nt + r];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        asm volatile(
+            "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+            "{%0, %1}, {%2}, {%3}, {%0, %1};"
+            : "+d"(c[8 * mt + 2 * nt]), "+d"(c[8 * mt + 2 * nt + 1])
+            : "d"(a[mt]), "d"(b[nt]));
+      }
+#else
+    for (int f = 0; f < 16; ++f) {
+      const int row = mt_row<double>(tid, f / 4, f % 4);
+      const int col = mt_col<double>(tid, f / 4, f % 4);
+      for (int kk = 0; kk < 4; ++kk) {
+        c[f] = mv_fma(kt[(j0 + jj + kk) * MT_LD + row],
+                      vs[(jj + kk) * MT_VLD + col], c[f]);
+      }
+    }
+#endif
+  }
+}
+
+// Tiled path, thread tid's outputs after one K tile: y gains the tile's
+// sums (the first tile writes them), the last tile adds the nugget's term.
+// Rows of the block from li0 (of n_rows; global row r0 + li), chunk
+// columns from c0 (of m).
+template <typename T>
+__device__ __forceinline__ void mt_store(T* y, const T* v, T nugget,
+                                         const T acc[4][4], int tid, int li0,
+                                         int r0, int n_rows, int c0, int m,
+                                         bool first, bool last) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int li = li0 + mt_row<T>(tid, a, b);
+      const int c = c0 + mt_col<T>(tid, a, b);
+      if (li >= n_rows || c >= m) continue;
+      const size_t at = (size_t)li * (size_t)m + (size_t)c;
+      T s = first ? acc[a][b] : y[at] + acc[a][b];
+      if (last) {
+        s = mv_add_nugget(s, nugget, v[(size_t)(r0 + li) * (size_t)m + c]);
+      }
+      y[at] = s;
+    }
+  }
+}
+
 #ifdef __CUDACC__
 
 // A thread's share of a tile: VEC neighbouring columns (16 bytes) in each of
@@ -865,6 +1167,41 @@ __device__ __forceinline__ void load_times(const T* __restrict__ t, int n,
   }
 }
 
+// What every block of B1 and its entries sets up first: the parameters and
+// their leaf_consts (once per block) in shared memory, a single leaf's and
+// a pair's copied to registers.
+template <typename T, int MODE>
+__device__ __forceinline__ void block_params(const T* __restrict__ params,
+                                             int n_params,
+                                             const Program& prog, T* par,
+                                             T* cst, T* p0, T* c0, T* p1,
+                                             T* c1) {
+  const int tid = threadIdx.x;
+  for (int k = tid; k < n_params; k += blockDim.x) par[k] = params[k];
+  __syncthreads();
+  if constexpr (MODE >= OP_C) {
+    if (tid == 0) leaf_consts<T>(MODE, par, cst);
+  } else {
+    if (tid < prog.n_ops && is_leaf_op(prog.op[tid])) {
+      leaf_consts<T>(prog.op[tid], par + prog.off[tid], cst + tid * N_CONSTS);
+    }
+  }
+  __syncthreads();
+  if constexpr (MODE != MODE_ANY) {
+    const int off1 = MODE == MODE_PAIR ? prog.off[1] : 0;
+#pragma unroll
+    for (int k = 0; k < LEAF_PARAMS; ++k) {
+      p0[k] = par[k];
+      p1[k] = par[off1 + k];
+    }
+#pragma unroll
+    for (int k = 0; k < N_CONSTS; ++k) {
+      c0[k] = cst[k];
+      c1[k] = cst[N_CONSTS + k];
+    }
+  }
+}
+
 // B1.  Block b takes tile pair b (the grid is one block per pair): the
 // values of tile (I, J) go to the matrix along their rows and, for I > J,
 // through `tile` to the mirrored tile (J, I) along its rows.
@@ -880,32 +1217,8 @@ kernel_matrix_kernel(const T* __restrict__ t, const T* __restrict__ params,
   __shared__ T tj[TILE];
   __shared__ T tile[TILE][TILE + 1];
   const int tid = threadIdx.x;
-  for (int k = tid; k < n_params; k += THREADS) par[k] = params[k];
-  __syncthreads();
-  // the parameter-only terms, once per block
-  if constexpr (MODE >= OP_C) {
-    if (tid == 0) leaf_consts<T>(MODE, par, cst);
-  } else {
-    if (tid < prog.n_ops && is_leaf_op(prog.op[tid])) {
-      leaf_consts<T>(prog.op[tid], par + prog.off[tid], cst + tid * N_CONSTS);
-    }
-  }
-  __syncthreads();
-  // a single leaf and a pair keep them in registers
   T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
-  if constexpr (MODE != MODE_ANY) {
-    const int off1 = MODE == MODE_PAIR ? prog.off[1] : 0;
-#pragma unroll
-    for (int m = 0; m < LEAF_PARAMS; ++m) {
-      p0[m] = par[m];
-      p1[m] = par[off1 + m];
-    }
-#pragma unroll
-    for (int m = 0; m < N_CONSTS; ++m) {
-      c0[m] = cst[m];
-      c1[m] = cst[N_CONSTS + m];
-    }
-  }
+  block_params<T, MODE>(params, n_params, prog, par, cst, p0, c0, p1, c1);
   const T jit = jitter[0];
   const int cx = (tid % S::THREADS_PER_ROW) * S::VEC;  // first column
   const int ry = tid / S::THREADS_PER_ROW;             // row in a pass
@@ -963,30 +1276,8 @@ kernel_matrix_slab_kernel(const T* __restrict__ t,
   __shared__ T ti[TILE];
   __shared__ T tj[TILE];
   const int tid = threadIdx.x;
-  for (int k = tid; k < n_params; k += THREADS) par[k] = params[k];
-  __syncthreads();
-  if constexpr (MODE >= OP_C) {
-    if (tid == 0) leaf_consts<T>(MODE, par, cst);
-  } else {
-    if (tid < prog.n_ops && is_leaf_op(prog.op[tid])) {
-      leaf_consts<T>(prog.op[tid], par + prog.off[tid], cst + tid * N_CONSTS);
-    }
-  }
-  __syncthreads();
   T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
-  if constexpr (MODE != MODE_ANY) {
-    const int off1 = MODE == MODE_PAIR ? prog.off[1] : 0;
-#pragma unroll
-    for (int m = 0; m < LEAF_PARAMS; ++m) {
-      p0[m] = par[m];
-      p1[m] = par[off1 + m];
-    }
-#pragma unroll
-    for (int m = 0; m < N_CONSTS; ++m) {
-      c0[m] = cst[m];
-      c1[m] = cst[N_CONSTS + m];
-    }
-  }
+  block_params<T, MODE>(params, n_params, prog, par, cst, p0, c0, p1, c1);
   const T jit = jitter[0];
   const int cx = (tid % S::THREADS_PER_ROW) * S::VEC;
   const int ry = tid / S::THREADS_PER_ROW;
@@ -1156,6 +1447,201 @@ kernel_matrix_grad_sum(const T* __restrict__ partial, T* __restrict__ out,
   if (tid == 0) out[m] = red[0];
 }
 
+// ---- B1's product entry ----------------------------------------------------
+
+// Register path: starts the copy of columns [j0, min(j0 + MV_STAGE, j1))
+// of t and V into ts / vs (cp.async, one commit); a column of V past m is 0.
+template <typename T, int W>
+__device__ __forceinline__ void mv_fill(const T* __restrict__ t,
+                                        const T* __restrict__ v, int m,
+                                        int j0, int j1, T* ts, T* vs) {
+  for (int k = threadIdx.x; k < MV_STAGE; k += MV_THREADS) {
+    const int j = j0 + k;
+    if (j >= j1) continue;
+    __pipeline_memcpy_async(ts + k, t + j, sizeof(T));
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      if (c < m) {
+        __pipeline_memcpy_async(vs + k * W + c, v + (size_t)j * m + c,
+                                sizeof(T));
+      } else {
+        vs[k * W + c] = T(0);
+      }
+    }
+  }
+  __pipeline_commit();
+}
+
+// Register path.  Block (x, g) takes rows [x * MV_THREADS, ...) of the
+// slab, one a thread, against column group g.  With one group the block
+// writes y; with more, its sums go to partial[g, row, c] and
+// kernel_matvec_sum adds them.
+template <typename T, int MODE, int W>
+__global__ void __launch_bounds__(MV_THREADS)
+kernel_matvec_kernel(const T* __restrict__ t, const T* __restrict__ params,
+                     const T* __restrict__ v, const T* __restrict__ nugget,
+                     T* __restrict__ out, int n, int m, int r0, int n_rows,
+                     int n_params, int groups, const Program prog) {
+  __shared__ T par[MAX_PARAMS];
+  __shared__ T cst[(MODE == MODE_ANY ? MAX_OPS : 2) * N_CONSTS];
+  __shared__ __align__(16) T ts[2][MV_STAGE];
+  __shared__ __align__(16) T vs[2][MV_STAGE * W];
+  T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
+  block_params<T, MODE>(params, n_params, prog, par, cst, p0, c0, p1, c1);
+  const int li = blockIdx.x * MV_THREADS + threadIdx.x;
+  const bool row = li < n_rows;
+  const T ti = row ? t[r0 + li] : T(0);
+  int j0, j1;
+  mv_group_range(n, blockIdx.y, &j0, &j1);
+  const int steps = (j1 - j0 + MV_STAGE - 1) / MV_STAGE;
+  T acc[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) acc[c] = T(0);
+  mv_fill<T, W>(t, v, m, j0, j1, ts[0], vs[0]);
+  for (int s = 0; s < steps; ++s) {
+    const int b = s & 1;
+    if (s + 1 < steps) {  // the next step's copy runs under this one
+      mv_fill<T, W>(t, v, m, j0 + (s + 1) * MV_STAGE, j1, ts[b ^ 1],
+                    vs[b ^ 1]);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const int left = j1 - j0 - s * MV_STAGE;
+    if (row) {
+      mv_row_stage<T, MODE, W>(prog, p0, c0, p1, c1, par, cst, ti, ts[b],
+                               vs[b], left < MV_STAGE ? left : MV_STAGE,
+                               acc);
+    }
+    __syncthreads();  // before the copy two steps on overwrites this buffer
+  }
+  if (!row) return;
+  const size_t i = (size_t)(r0 + li);
+  if (groups == 1) {
+    const T nug = nugget[0];
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      if (c < m) {
+        out[(size_t)li * m + c] = mv_add_nugget(acc[c], nug, v[i * m + c]);
+      }
+    }
+  } else {
+    T* part = out + ((size_t)blockIdx.y * n_rows + li) * (size_t)m;
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      if (c < m) part[c] = acc[c];
+    }
+  }
+}
+
+// Register path, second pass: y[row, c] = the groups' partial sums in
+// order, then the nugget's term.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+kernel_matvec_sum(const T* __restrict__ partial, const T* __restrict__ v,
+                  const T* __restrict__ nugget, T* __restrict__ y, int m,
+                  int r0, int n_rows, int groups) {
+  const size_t total = (size_t)n_rows * (size_t)m;
+  const size_t at = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (at >= total) return;
+  const size_t li = at / m, c = at % m;
+  y[at] = mv_add_nugget(mv_sum_groups(partial + at, groups, total), nugget[0],
+                        v[((size_t)r0 + li) * (size_t)m + c]);
+}
+
+// Tiled path: starts the copy of V's rows [j0, j0 + cnt) (cnt <= MT_K),
+// columns [mc, mc + MT_M), into vs (cp.async, one commit); 0 past them.
+template <typename T>
+__device__ __forceinline__ void mt_fill(const T* __restrict__ v, int m,
+                                        int j0, int cnt, int mc, T* vs) {
+  for (int q = threadIdx.x; q < MT_K * MT_M; q += MT_THREADS) {
+    const int jj = q / MT_M, col = mc + q % MT_M;
+    T* to = vs + jj * MT_VLD + q % MT_M;
+    if (jj < cnt && col < m) {
+      __pipeline_memcpy_async(to, v + (size_t)(j0 + jj) * m + col,
+                              sizeof(T));
+    } else {
+      *to = T(0);
+    }
+  }
+  __pipeline_commit();
+}
+
+// Tiled path (m > MV_CAP).  Block x takes rows [x * MT_ROWS, ...) of the
+// slab and walks K's column tiles: each tile evaluated once into kt, then
+// multiplied against V's chunks of MT_M columns, MT_K rows of V at a time
+// copied into vs with cp.async while the last ones are multiplied (two
+// buffers); each chunk's sums of a tile go to y and back.  A block's
+// 85 KB (float) or 102 KB (double) of shared memory let two run on an SM.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(MT_THREADS, 2)
+kernel_matvec_tiled_kernel(const T* __restrict__ t,
+                           const T* __restrict__ params,
+                           const T* __restrict__ v,
+                           const T* __restrict__ nugget, T* __restrict__ y,
+                           int n, int m, int r0, int n_rows, int n_params,
+                           const Program prog) {
+  constexpr int COLS = mt_cols<T>();
+  __shared__ T par[MAX_PARAMS];
+  __shared__ T cst[(MODE == MODE_ANY ? MAX_OPS : 2) * N_CONSTS];
+  __shared__ T ti[MT_ROWS];
+  __shared__ T tj[COLS];
+  extern __shared__ __align__(16) unsigned char mt_smem[];
+  T* kt = reinterpret_cast<T*>(mt_smem);  // [COLS][MT_LD]
+  T* vs[2] = {kt + MT_LD * COLS,          // [MT_K][MT_VLD] each
+              kt + MT_LD * COLS + MT_K * MT_VLD};
+  T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
+  block_params<T, MODE>(params, n_params, prog, par, cst, p0, c0, p1, c1);
+  const int tid = threadIdx.x;
+  const int li0 = blockIdx.x * MT_ROWS;
+  if (tid < MT_ROWS) {
+    const int li = li0 + tid;
+    ti[tid] = li < n_rows ? t[r0 + li] : T(0);
+  }
+  const T nug = nugget[0];
+  const int tiles = (n + COLS - 1) / COLS;
+  const int chunks = (m + MT_M - 1) / MT_M;
+  for (int k = 0; k < tiles; ++k) {
+    const int jt = k * COLS;
+    const int cnt = n - jt < COLS ? n - jt : COLS;
+    const int steps = (cnt + MT_K - 1) / MT_K;  // of V's rows, per chunk
+    __syncthreads();  // the last tile's readers are done
+    for (int j = tid; j < COLS; j += MT_THREADS) {
+      tj[j] = j < cnt ? t[jt + j] : T(0);
+    }
+    __syncthreads();
+    mt_eval<T, MODE>(prog, p0, c0, p1, c1, par, cst, ti, tj, cnt, tid, kt);
+    mt_fill<T>(v, m, jt, cnt < MT_K ? cnt : MT_K, 0, vs[0]);
+    T acc[4][4];
+    for (int q = 0; q < steps * chunks; ++q) {
+      const int mc = q / steps * MT_M, s = q % steps * MT_K;
+      if (q + 1 < steps * chunks) {  // the next step's copy runs under this
+        const int s1 = (q + 1) % steps * MT_K;
+        mt_fill<T>(v, m, jt + s1, cnt - s1 < MT_K ? cnt - s1 : MT_K,
+                   (q + 1) / steps * MT_M, vs[(q + 1) & 1]);
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      if (s == 0) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
+      }
+      __syncthreads();  // kt and this step's vs written
+      mt_product(kt, vs[q & 1], s, cnt - s < MT_K ? cnt - s : MT_K, tid,
+                 acc);
+      if (s + MT_K >= cnt) {
+        mt_store<T>(y, v, nug, acc, tid, li0, r0, n_rows, mc, m, k == 0,
+                    k == tiles - 1);
+      }
+      __syncthreads();  // before the copy two steps on overwrites this vs
+    }
+  }
+}
+
 // Checks the arguments every launch shares and fills the program; returns
 // a CUDA error code (0 when all is well).
 static int make_program(int n, int n_params, const int* ops, const int* offs,
@@ -1285,6 +1771,96 @@ static int launch_grad(int device, const T* t, const T* params, const T* G,
   kernel_matrix_grad_sum<T><<<n_params, THREADS, 0, s>>>(partial, out,
                                                          n_blocks, n_params);
   return (int)cudaGetLastError();
+}
+
+// partial holds mv_groups(n) x n_rows x m values when m <= MV_CAP and
+// there is more than one group; it may be null otherwise.
+template <typename T>
+static int launch_matvec(int device, const T* t, const T* params,
+                         const T* v, const T* nugget, T* y, T* partial,
+                         int n, int m, int r0, int n_rows, int n_params,
+                         const int* ops, const int* offs, const int* lhs,
+                         const int* rhs, int n_ops, void* stream) {
+  Program prog;
+  int bad = make_program(n, n_params, ops, offs, lhs, rhs, n_ops, &prog);
+  if (bad) return bad;
+  if (m < 1 || r0 < 0 || n_rows < 1 || r0 > n - n_rows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m <= MV_CAP) {
+    const int groups = mv_groups(n);
+    if (groups > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)((n_rows + MV_THREADS - 1) / MV_THREADS),
+                    (unsigned)groups);
+    T* out = groups == 1 ? y : partial;
+#define RUN(MODE, W)                                                        \
+  kernel_matvec_kernel<T, MODE, W><<<grid, MV_THREADS, 0, s>>>(             \
+      t, params, v, nugget, out, n, m, r0, n_rows, n_params, groups, prog)
+#define RUN_MODE(MODE)     \
+  if (m == 1) {            \
+    RUN(MODE, 1);          \
+  } else {                 \
+    RUN(MODE, MV_CAP);     \
+  }
+#define CASE(OP) case OP: RUN_MODE(OP); break;
+    switch (program_mode(prog)) {
+      FOR_EACH_LEAF(CASE)
+      case MODE_PAIR: RUN_MODE(MODE_PAIR); break;
+      default: RUN_MODE(MODE_ANY); break;
+    }
+#undef CASE
+#undef RUN_MODE
+#undef RUN
+    err = cudaGetLastError();
+    if (err != cudaSuccess || groups == 1) return (int)err;
+    const size_t total = (size_t)n_rows * (size_t)m;
+    kernel_matvec_sum<T><<<(unsigned)((total + THREADS - 1) / THREADS),
+                           THREADS, 0, s>>>(partial, v, nugget, y, m, r0,
+                                            n_rows, groups);
+    return (int)cudaGetLastError();
+  }
+  const int smem = (int)((mt_cols<T>() * MT_LD + 2 * MT_K * MT_VLD) *
+                         sizeof(T));
+  const unsigned grid = (unsigned)((n_rows + MT_ROWS - 1) / MT_ROWS);
+#define RUN(MODE)                                                           \
+  err = cudaFuncSetAttribute(kernel_matvec_tiled_kernel<T, MODE>,           \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                             smem);                                         \
+  if (err != cudaSuccess) return (int)err;                                  \
+  kernel_matvec_tiled_kernel<T, MODE><<<grid, MT_THREADS, smem, s>>>(       \
+      t, params, v, nugget, y, n, m, r0, n_rows, n_params, prog)
+#define CASE(OP) case OP: RUN(OP); break;
+  switch (program_mode(prog)) {
+    FOR_EACH_LEAF(CASE)
+    case MODE_PAIR: RUN(MODE_PAIR); break;
+    default: RUN(MODE_ANY); break;
+  }
+#undef CASE
+#undef RUN
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gpyrn_kernel_matvec_f64(
+    int device, const double* t, const double* params, const double* v,
+    const double* nugget, double* y, double* partial, int n, int m, int r0,
+    int n_rows, int n_params, const int* ops, const int* offs,
+    const int* lhs, const int* rhs, int n_ops, void* stream) {
+  return launch_matvec<double>(device, t, params, v, nugget, y, partial, n,
+                               m, r0, n_rows, n_params, ops, offs, lhs, rhs,
+                               n_ops, stream);
+}
+
+extern "C" int gpyrn_kernel_matvec_f32(
+    int device, const float* t, const float* params, const float* v,
+    const float* nugget, float* y, float* partial, int n, int m, int r0,
+    int n_rows, int n_params, const int* ops, const int* offs,
+    const int* lhs, const int* rhs, int n_ops, void* stream) {
+  return launch_matvec<float>(device, t, params, v, nugget, y, partial, n, m,
+                              r0, n_rows, n_params, ops, offs, lhs, rhs,
+                              n_ops, stream);
 }
 
 extern "C" int gpyrn_kernel_matrix_f64(int device, const double* t,

@@ -87,7 +87,8 @@ def make_cg_fit(spec: GPRNSpec, rank: int = 128, cg_tol: float = 1e-6,
         if mesh is None:
             return kernel_matvec(structure, cp, t, x, nugget=nu, chunk=chunk)
         xm = x[:, None] if x.ndim == 1 else x
-        y = gathered_matvec(structure, cp, t[rows], t, xm, axis, chunk) \
+        y = gathered_matvec(structure, cp, t, xm, rows.start,
+                            rows.stop - rows.start, axis, chunk) \
             + nu * xm
         return y[:, 0] if x.ndim == 1 else y
 

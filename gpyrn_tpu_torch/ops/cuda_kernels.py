@@ -45,6 +45,19 @@ slab (``gpyrn_tpu/parallel/panel_fit.py``, ``_slab_kernel``), one block per
 same place.  No gradient (no parallel path differentiates it);
 :func:`kernel_matrix_slab_ref` is its plain version.
 
+:func:`kernel_matvec_cuda` is B1's product entry: rows [r0, r0 + n_rows)
+of ``(K(t, t) + nugget·I) @ V`` with each element of K evaluated by B1's
+element math in registers and never written to memory.  It replaces the
+JAX package's ``gpyrn_tpu/ops/iterative.py::kernel_matvec`` (row chunks of
+K built and multiplied by XLA) on the card; ``ops/iterative.kernel_matvec``
+and the sharded CG's row slabs launch it.  For m ≤ ``MATVEC_CAP`` columns
+a thread keeps a row's sums in registers and the columns split into
+groups fixed by N alone (:func:`matvec_groups`), summed in order by a
+second kernel; above, a K tile is evaluated once into shared memory and
+multiplied against every chunk of V.  No gradient (no caller
+differentiates a matvec); :func:`kernel_matvec_ref` is its plain version,
+the JAX package's chunked formula.
+
 :func:`kernel_matrix_rows_cuda` builds a lattice, W rows of a list of S
 structures, straight into one ``(W, S, N, N)`` tensor (one B1 launch per
 slice, one B1′ launch per slice of the adjoint in the backward), which
@@ -85,6 +98,7 @@ __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_rows_ref", "kernel_matrix_rows_cuda",
            "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda",
            "kernel_matrix_slab_ref", "kernel_matrix_slab_cuda",
+           "kernel_matvec_ref", "kernel_matvec_cuda", "matvec_groups",
            "kernel_matrix_stack_op", "grad_blocks", "LAUNCHES",
            "reset_launch_counts"]
 
@@ -111,9 +125,19 @@ GRAD_BLOCKS_PER_SM = 8
 # take the plain path on every device, as in the JAX package.
 _LEAVES = frozenset(OPCODES) - {"+", "*"}
 
+# B1's product entry (csrc MV_* defines): the register path takes m ≤
+# MATVEC_CAP columns of V, MATVEC_THREADS rows a block, whole steps of
+# MATVEC_STAGE columns, and its column groups aim at MATVEC_TARGET_BLOCKS
+# blocks over N's row tiles.
+MATVEC_CAP = 8
+MATVEC_THREADS = 128
+MATVEC_STAGE = 256
+MATVEC_TARGET_BLOCKS = 4096
+
 # Launches of each kernel, counted where the kernel is launched (B1's slab
-# entry counts as B1).
-LAUNCHES = {"kernel_matrix": 0, "kernel_matrix_grad": 0}
+# entry counts as B1; the product entry, its sum pass included, once per
+# call).
+LAUNCHES = {"kernel_matrix": 0, "kernel_matrix_grad": 0, "kernel_matvec": 0}
 
 
 def reset_launch_counts() -> None:
@@ -556,6 +580,126 @@ def kernel_matrix_slab_cuda(structure, params, t, n_pad, r0, n_rows, jitter):
                            f"{n_pad}, {t.dtype})")
     LAUNCHES["kernel_matrix"] += 1
     return out
+
+
+# ---- B1's product entry: (K + nugget·I) @ V, K never in memory -------------
+
+def _kernel_block(structure, params, rows, t):
+    """K(rows, t), the (len(rows), N) block of the kernel matrix."""
+    if _k.is_nonstationary(structure):
+        return _k.evaluate(structure, params, t1=rows[:, None],
+                           t2=t[None, :])
+    return _k.evaluate(structure, params, r=rows[:, None] - t[None, :])
+
+
+def _matvec_rows(n, r0, n_rows):
+    """(r0, n_rows) of a product's rows, n_rows None for all from r0."""
+    r0 = int(r0)
+    n_rows = n - r0 if n_rows is None else int(n_rows)
+    if not (0 <= r0 and n_rows >= 1 and r0 + n_rows <= n):
+        raise ValueError(f"the rows [{r0}, {r0 + n_rows}) must lie in the "
+                         f"N = {n} rows of K")
+    return r0, n_rows
+
+
+def kernel_matvec_ref(structure, params, t, v, nugget=0.0, chunk=2048,
+                      r0=0, n_rows=None):
+    """Plain version of :func:`kernel_matvec_cuda`: rows [r0, r0 + n_rows)
+    of (K(t, t) + nugget·I) @ v with K rebuilt in ``chunk``-row blocks
+    (:func:`_kernel_block`, the last one ragged) and multiplied; any
+    structure, the non-stationary ones too.  ``v`` (N,) or (N, m)."""
+    r0, n_rows = _matvec_rows(t.shape[0], r0, n_rows)
+    squeeze = v.ndim == 1
+    if squeeze:
+        v = v[:, None]
+    rows = t[r0:r0 + n_rows]
+    C = int(min(chunk, n_rows))
+    y = torch.cat([_kernel_block(structure, params, rows[s:s + C], t) @ v
+                   for s in range(0, n_rows, C)])
+    y = y + nugget * v[r0:r0 + n_rows]
+    return y[:, 0] if squeeze else y
+
+
+def matvec_groups(n: int) -> int:
+    """The column groups of the product entry's register path (csrc
+    ``mv_groups``): about MATVEC_TARGET_BLOCKS blocks over the row tiles
+    of all N rows, each group whole steps of MATVEC_STAGE columns.  It
+    depends on N alone, so a slab of rows sums as the whole product does."""
+    row_tiles = -(-n // MATVEC_THREADS)
+    want = -(-MATVEC_TARGET_BLOCKS // row_tiles)
+    cols = -(-n // want)
+    cols = -(-cols // MATVEC_STAGE) * MATVEC_STAGE
+    return -(-n // cols)
+
+
+_MATVEC_SYMBOLS = {torch.float64: "gpyrn_kernel_matvec_f64",
+                   torch.float32: "gpyrn_kernel_matvec_f32"}
+
+
+def _matvec_argtypes():
+    """The product entry's arguments: device, t, params, v, nugget, y,
+    partial, n, m, r0, n_rows, n_params, ops, offs, lhs, rhs, n_ops,
+    stream."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return [i, p, p, p, p, p, p, i, i, i, i, i, p, p, p, p, i, p]
+
+
+@functools.lru_cache(maxsize=None)
+def _matvec_function(dtype):
+    fn = getattr(_build.load("kernel_matrix"), _MATVEC_SYMBOLS[dtype])
+    fn.argtypes = _matvec_argtypes()
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_matvec_cuda(structure, params, t, v, nugget=0.0, r0=0,
+                       n_rows=None):
+    """B1's product entry on the card: rows ``[r0, r0 + n_rows)`` of
+    ``(K(t, t) + nugget·I) @ v`` as a new ``(n_rows, m)`` tensor, each
+    element of K evaluated once by B1's element math and never stored.
+    ``t`` and ``params`` as :func:`kernel_matrix_cuda`; ``v`` a contiguous
+    (N, m) tensor on t's device in t's dtype; ``nugget`` a number or a 0-d
+    tensor on t's device.  One launch on the current stream (two with the
+    column groups' sum); no gradient.  The same inputs give the same bits,
+    and a row's bits do not depend on r0 or n_rows."""
+    n = t.shape[0]
+    r0, n_rows = _matvec_rows(n, r0, n_rows)
+    if (not isinstance(v, torch.Tensor) or v.ndim != 2 or v.shape[0] != n
+            or v.shape[1] < 1):
+        raise ValueError(f"v must be an ({n}, m) tensor with m >= 1, got "
+                         f"{tuple(getattr(v, 'shape', ()))}")
+    if params.requires_grad or v.requires_grad or (
+            isinstance(nugget, torch.Tensor) and nugget.requires_grad):
+        raise ValueError("kernel_matvec_cuda takes no gradient")
+    _check(structure, params, t)
+    _check_no_grad(t)
+    if v.device != t.device or v.dtype != t.dtype or not v.is_contiguous():
+        raise ValueError("v must be contiguous, on t's device and in t's "
+                         "dtype")
+    if isinstance(nugget, torch.Tensor):
+        if nugget.device != t.device or nugget.numel() != 1:
+            raise ValueError("a tensor nugget must be 0-d on t's device")
+        nug = nugget.to(t.dtype).reshape(()).contiguous()
+    else:
+        nug = t.new_full((), float(nugget))
+    m = v.shape[1]
+    y = torch.empty((n_rows, m), dtype=t.dtype, device=t.device)
+    groups = matvec_groups(n)
+    partial = (torch.empty((groups, n_rows, m), dtype=t.dtype,
+                           device=t.device)
+               if m <= MATVEC_CAP and groups > 1 else None)
+    err = _matvec_function(t.dtype)(
+        t.device.index, t.data_ptr(), params.data_ptr(), v.data_ptr(),
+        nug.data_ptr(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(), n, m, r0, n_rows,
+        params.shape[0], *_program_args(structure),
+        torch.cuda.current_stream(t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel_matvec launch failed with CUDA error "
+                           f"{err} (N={n}, m={m}, rows {r0}..{r0 + n_rows}, "
+                           f"{t.dtype})")
+    LAUNCHES["kernel_matvec"] += 1
+    return y
 
 
 # ---- the custom operator of the exported program -------------------------

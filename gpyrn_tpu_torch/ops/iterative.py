@@ -1,10 +1,14 @@
 """Matrix-free kernel linear algebra: CG and Lanczos.
 
 Port of :mod:`gpyrn_tpu.ops.iterative`.  Every operation goes through
-kernel matvecs that rebuild K in row chunks on the fly (O(N·chunk)
-memory, O(N²) work per matvec), so nothing N×N is ever held:
+kernel matvecs that evaluate K on the fly (O(N²) work per matvec), so
+nothing N×N is ever held:
 
-* :func:`kernel_matvec`: chunked (K + nugget·I) @ V;
+* :func:`kernel_matvec`: (K + nugget·I) @ V, on the card by B1's product
+  entry (``cuda_kernels.kernel_matvec_cuda``: each element of K evaluated
+  in registers, never stored) for every structure B1 takes; elsewhere,
+  and for the non-stationary structures, in row chunks of K
+  (``cuda_kernels.kernel_matvec_ref``, O(N·chunk) memory);
 * :func:`cg_solve`: preconditioned conjugate gradients over a batch of
   right-hand sides (Jacobi, or any SPD apply such as
   :func:`split_precond` around a :func:`pivoted_cholesky` factor), with
@@ -35,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from gpyrn_tpu_torch.ops import cuda_kernels as _ck
 from gpyrn_tpu_torch.ops import kernels as _k
 
 __all__ = ["kernel_matvec", "cg_solve", "slq_logdet", "lanczos",
@@ -47,30 +52,37 @@ def _as(x, like):
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
-def _kernel_block(structure, params, rows, t):
-    """K(rows, t), the (len(rows), N) block of the kernel matrix."""
-    if _k.is_nonstationary(structure):
-        return _k.evaluate(structure, params, t1=rows[:, None],
-                           t2=t[None, :])
-    return _k.evaluate(structure, params, r=rows[:, None] - t[None, :])
+def matvec_route(structure, device) -> str:
+    """Where :func:`kernel_matvec` computes on ``device``: ``"kernel"``
+    (B1's product entry) on a CUDA device for a structure B1 takes, else
+    ``"plain"`` (row chunks of K).  Chosen by structure and device only."""
+    device = torch.device(device)
+    return ("kernel" if device.type == "cuda" and _ck.cuda_supported(
+        structure) else "plain")
 
 
-def kernel_matvec(structure, params, t, v, nugget=0.0, chunk: int = 2048):
+def kernel_matvec(structure, params, t, v, nugget=0.0, chunk: int = 2048,
+                  r0: int = 0, n_rows: Optional[int] = None):
     """y = (K(t,t) + nugget·I) @ v without materializing K.
 
-    ``v`` is (N,) or (N, m), on ``t``'s device and in its dtype; K is
-    rebuilt in ``chunk``-row blocks (O(N·chunk) live memory), the last one
-    ragged."""
+    ``v`` is (N,) or (N, m), on ``t``'s device and in its dtype; ``nugget``
+    a number or a 0-d tensor.  With ``r0`` / ``n_rows``, only those rows
+    of y (the rows of one rank's slab).  On the card a structure B1 takes
+    runs B1's product entry (no gradient); any other structure, and every
+    one on the CPU, rebuilds K in ``chunk``-row blocks (O(N·chunk) live
+    memory), the last one ragged (:func:`matvec_route`)."""
     params = _as(params, t)
     v = _as(v, t)
     squeeze = v.ndim == 1
     if squeeze:
         v = v[:, None]
-    N = t.shape[0]
-    C = int(min(chunk, N))
-    y = torch.cat([_kernel_block(structure, params, t[s:s + C], t) @ v
-                   for s in range(0, N, C)])
-    y = y + nugget * v
+    if matvec_route(structure, t.device) == "kernel":
+        y = _ck.kernel_matvec_cuda(structure, params.contiguous(),
+                                   t.contiguous(), v.contiguous(), nugget,
+                                   r0, n_rows)
+    else:
+        y = _ck.kernel_matvec_ref(structure, params, t, v, nugget, chunk,
+                                  r0, n_rows)
     return y[:, 0] if squeeze else y
 
 

@@ -1,11 +1,13 @@
 """Distributed matrix-free CG: the kernel matvec's rows split over a mesh.
 
 Port of :mod:`gpyrn_tpu.parallel.iterative_sharded`.  The single-device
-matrix-free path (:mod:`gpyrn_tpu_torch.ops.iterative`) rebuilds K in row
-chunks, O(N²) work per matvec; here each rank of one mesh axis rebuilds
-and multiplies only its N/D-row slab (:func:`slab_matvec`), so every
-matvec's work divides by the axis size while the CG vectors stay
-replicated.  The gather of the slab products is the one collective per
+matrix-free path (:mod:`gpyrn_tpu_torch.ops.iterative`) evaluates K on the
+fly, O(N²) work per matvec; here each rank of one mesh axis computes only
+its N/D rows of the product (:func:`slab_matvec`: ``kernel_matvec`` with
+the rank's rows, B1's product entry on the card), so every matvec's work
+divides by the axis size while the CG vectors stay replicated; a row sums
+as it does in the whole product (the kernel splits the columns by N
+alone).  The gather of the slab products is the one collective per
 matvec; every reduction of the solve runs on replicated data, so all ranks
 take the same steps and stop together.  The solve is
 :func:`gpyrn_tpu_torch.ops.iterative.cg_solve` itself, fed the
@@ -20,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from gpyrn_tpu_torch.ops.iterative import (_kernel_block, cg_solve,
-                                           kernel_diag, pivoted_cholesky,
+from gpyrn_tpu_torch.ops.iterative import (cg_solve, kernel_diag,
+                                           kernel_matvec, pivoted_cholesky,
                                            split_precond)
 from gpyrn_tpu_torch.ops.linalg import TRAIN_NUGGET
 from gpyrn_tpu_torch.parallel.mesh import DP_AXIS, all_gather, mesh_axis
@@ -29,20 +31,22 @@ from gpyrn_tpu_torch.parallel.mesh import DP_AXIS, all_gather, mesh_axis
 __all__ = ["cg_solve_sharded", "slab_matvec", "gathered_matvec"]
 
 
-def slab_matvec(structure, params, t_rows, t, x, chunk: int = 1024):
-    """K(t_rows, t) @ x for x (N, k), in row chunks of ``chunk`` (the last
-    one shorter): one rank's rows of a kernel matvec."""
-    return torch.cat([_kernel_block(structure, params, t_rows[s:s + chunk],
-                                    t) @ x
-                      for s in range(0, t_rows.shape[0], chunk)])
+def slab_matvec(structure, params, t, x, r0, n_rows, chunk: int = 1024):
+    """Rows [r0, r0 + n_rows) of K(t, t) @ x for x (N, k): one rank's rows
+    of a kernel matvec (``kernel_matvec`` with those rows and no nugget;
+    ``chunk`` shapes only the plain path's row blocks)."""
+    return kernel_matvec(structure, params, t, x, nugget=0.0, chunk=chunk,
+                         r0=r0, n_rows=n_rows)
 
 
-def gathered_matvec(structure, params, t_rows, t, x, axis, chunk: int = 1024):
+def gathered_matvec(structure, params, t, x, r0, n_rows, axis,
+                    chunk: int = 1024):
     """K(t, t) @ x for x (N, k) over the ranks of ``axis`` (an
     :class:`~gpyrn_tpu_torch.parallel.mesh.Axis`): each rank multiplies its
-    rows ``t_rows`` (:func:`slab_matvec`) and every rank gets them all."""
-    return all_gather(slab_matvec(structure, params, t_rows, t, x, chunk),
-                      axis)
+    rows [r0, r0 + n_rows) (:func:`slab_matvec`) and every rank gets them
+    all."""
+    return all_gather(slab_matvec(structure, params, t, x, r0, n_rows,
+                                  chunk), axis)
 
 
 def cg_solve_sharded(structure, params, t, b, mesh, d_add=None,
@@ -69,20 +73,19 @@ def cg_solve_sharded(structure, params, t, b, mesh, d_add=None,
     N = t.shape[0]
     Np = -(-N // axis.size) * axis.size
     Nl, pad = Np // axis.size, Np - N
-    rows = slice(axis.rank * Nl, (axis.rank + 1) * Nl)
     params = torch.as_tensor(params, dtype=t.dtype, device=t.device)
     t_full = torch.cat([t, (t[-1] + 1e6).expand(pad)])
     b_full = torch.nn.functional.pad(b, (0, 0, 0, pad))
     m_full = torch.cat([t.new_ones(N), t.new_zeros(pad)])
     d = t.new_zeros(N) if d_add is None else d_add
     d_full = torch.nn.functional.pad(d, (0, pad)) + (1.0 - m_full)
-    t_loc = t_full[rows]
 
     def mv(P):
         # pad coupling masked on both sides: pad columns never contribute,
         # pad rows reduce to the unit diagonal
-        return gathered_matvec(structure, params, t_loc, t_full,
-                               P * m_full[:, None], axis, chunk) \
+        return gathered_matvec(structure, params, t_full,
+                               P * m_full[:, None], axis.rank * Nl, Nl,
+                               axis, chunk) \
             * m_full[:, None] + (nugget * m_full + d_full)[:, None] * P
 
     if int(precond_rank) > 0:

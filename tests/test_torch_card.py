@@ -19,6 +19,7 @@ import torch
 from chip_smoke import LEAF_CASES
 import gpyrn_tpu_torch as gt
 from gpyrn_tpu_torch.ops import cuda_kernels as ck
+from gpyrn_tpu_torch.ops import iterative as ti
 from gpyrn_tpu_torch.ops import kernels as tk
 from gpyrn_tpu_torch.ops import linalg as tlin
 
@@ -208,7 +209,8 @@ def test_stack_matches_its_plain_version(dtype, cuda):
             launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
             expected = len(STACK) if name == "cuda" else 0
             assert launched == {"kernel_matrix": expected,
-                                "kernel_matrix_grad": expected}
+                                "kernel_matrix_grad": expected,
+                                "kernel_matvec": 0}
             if name == "cuda":
                 assert K.shape == (len(STACK), N, N) and K.is_contiguous()
                 for b, (s, p) in enumerate(zip(structures, params)):
@@ -247,7 +249,8 @@ def test_rows_match_their_plain_version(dtype, cuda):
             launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
             expected = W * S if name == "cuda" else 0
             assert launched == {"kernel_matrix": expected,
-                                "kernel_matrix_grad": expected}
+                                "kernel_matrix_grad": expected,
+                                "kernel_matvec": 0}
             out[name] = (K.detach(), grads)
         (K, g), (R, g_ref) = out["cuda"], out["plain"]
         assert K.shape == (W, S, N, N) and K.is_contiguous()
@@ -393,7 +396,8 @@ def test_gradient_path_on_card_matches_cpu(cuda):
         launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
         expected = 8 if device == cuda else 0
         assert launched == {"kernel_matrix": expected,
-                            "kernel_matrix_grad": expected}
+                            "kernel_matrix_grad": expected,
+                            "kernel_matvec": 0}
     (v_gpu, g_gpu), (v_cpu, g_cpu) = values["cuda"], values["cpu"]
     assert abs(float(v_gpu) - float(v_cpu)) <= 1e-9 * abs(float(v_cpu))
     assert float((g_gpu.cpu() - g_cpu).abs().max()) <= \
@@ -473,7 +477,8 @@ def test_implicit_gradient_on_card_matches_cpu(cuda):
         launched = {k: ck.LAUNCHES[k] - before[k] for k in before}
         expected = 8 if device == cuda else 0
         assert launched == {"kernel_matrix": expected,
-                            "kernel_matrix_grad": expected}
+                            "kernel_matrix_grad": expected,
+                            "kernel_matvec": 0}
         assert g.implicit_info["pullbacks"] > 4
         assert g.implicit_info["adjoint_residual"] < 1e-10
         assert g._mu.device.type == str(device).split(":")[0]
@@ -647,10 +652,9 @@ def test_lean_sweeps_launch_one_build_per_gp_and_match_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_matvec_on_card_matches_cpu(cuda, dtype):
-    """ops/iterative.kernel_matvec (plain torch, ragged last chunk) on the
-    card equals the CPU's: 1e-12 of max |y| in float64, 1e-5 in
-    float32."""
-    from gpyrn_tpu_torch.ops import iterative as ti
+    """ops/iterative.kernel_matvec (B1's product entry) on the card equals
+    the CPU's (the plain version, ragged last chunk): 1e-12 of max |y| in
+    float64, 1e-5 in float32."""
     t = np.sort(np.random.default_rng(5).uniform(0, 100, 3001))
     v = np.random.default_rng(6).standard_normal((3001, 2))
     pars = (1.0, 30.0, 20.0, 0.7)
@@ -784,3 +788,85 @@ def test_panel_refine_on_one_nccl_rank_equals_lean(cuda):
     assert abs(float(e_p) - float(e_l)) <= 1e-9 * abs(float(e_l))
     for a, b in ((mu_p, mu_l), (var_p, var_l)):
         assert np.max(np.abs(a - b)) <= 1e-8 * (1 + np.max(np.abs(b)))
+
+
+# B1's product entry: a single leaf, a pair, a composite (the interpreter);
+# N around the tiles (32), the register path's rows (128) and steps (256),
+# 4097 with several column groups; m = 1 and 8 (the register path's two
+# instances), 33 (the tiled path)
+MATVEC_CASES = [CASES[0], CASES[1], CASES[4], CASES[6]]
+MATVEC_NS = (1, 33, 300, 1000, 4097)
+MATVEC_COLS = (1, 8, 33)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("structure,pars", MATVEC_CASES)
+def test_product_entry_matches_twin(structure, pars, dtype, cuda):
+    """The product entry against its plain version, 1e-12 (float64) or
+    1e-5 (float32) of max |y| (the sums run in another order); one launch
+    a call; a second call gives the same bits; the rows of a slab from
+    row 0 and of the ragged last one equal the whole product's bit for
+    bit."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    p = torch.tensor(pars, dtype=dtype, device=cuda)
+    for N in MATVEC_NS:
+        t = torch.tensor(_times(N), dtype=dtype, device=cuda)
+        rng = np.random.default_rng(N)
+        for m in MATVEC_COLS:
+            v = torch.tensor(rng.standard_normal((N, m)), dtype=dtype,
+                             device=cuda)
+            before = ck.LAUNCHES["kernel_matvec"]
+            y = ck.kernel_matvec_cuda(structure, p, t, v, 0.3)
+            assert ck.LAUNCHES["kernel_matvec"] == before + 1
+            ref = ck.kernel_matvec_ref(structure, p, t, v, 0.3)
+            torch.cuda.synchronize()
+            assert y.shape == (N, m)
+            assert float((y - ref).abs().max()) <= tol * float(
+                ref.abs().max()), (N, m)
+            assert torch.equal(y, ck.kernel_matvec_cuda(structure, p, t, v,
+                                                        0.3))
+            rows = max(1, N // 3)
+            for r0 in (0, N - rows):
+                assert torch.equal(ck.kernel_matvec_cuda(
+                    structure, p, t, v, 0.3, r0, rows), y[r0:r0 + rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_slab_matvec_rows_equal_kernel_matvec_rows(dtype, cuda):
+    """One rank's rows of the sharded CG's product (``slab_matvec``) equal
+    the same rows of ``kernel_matvec``'s bit for bit."""
+    from gpyrn_tpu_torch.parallel.iterative_sharded import slab_matvec
+    N = 5000
+    t = torch.tensor(_times(N), dtype=dtype, device=cuda)
+    p = torch.tensor(CASES[1][1], dtype=dtype, device=cuda)
+    x = torch.tensor(np.random.default_rng(2).standard_normal((N, 2)),
+                     dtype=dtype, device=cuda)
+    whole = ti.kernel_matvec(("QP",), p, t, x)
+    for r0, n_rows in ((0, 1250), (3750, 1250), (1234, 777)):
+        assert torch.equal(slab_matvec(("QP",), p, t, x, r0, n_rows),
+                           whole[r0:r0 + n_rows])
+
+
+@pytest.mark.cuda
+def test_cg_and_prediction_launch_the_product_entry(cuda):
+    """``cg_solve`` on ``kernel_matvec`` launches the product entry once
+    per iteration; ``predict_iterative`` launches it."""
+    from gpyrn_tpu_torch.models.iterative import predict_iterative
+    N = 500
+    t = torch.tensor(_times(N), dtype=torch.float64, device=cuda)
+    p = torch.tensor(CASES[1][1], dtype=torch.float64, device=cuda)
+    b = torch.tensor(np.random.default_rng(3).standard_normal(N),
+                     dtype=torch.float64, device=cuda)
+    before = ck.LAUNCHES["kernel_matvec"]
+    x, it = ti.cg_solve(lambda v: ti.kernel_matvec(("QP",), p, t, v,
+                                                   nugget=0.1), b,
+                        tol=1e-8, maxiter=200)
+    assert it > 0 and ck.LAUNCHES["kernel_matvec"] - before == it
+    g = _headline_small(cuda)
+    g.ELBOcalc()
+    before = ck.LAUNCHES["kernel_matvec"]
+    _, mean, std, _ = predict_iterative(g, nn=50)
+    assert ck.LAUNCHES["kernel_matvec"] > before
+    assert bool(torch.isfinite(torch.as_tensor(mean)).all())

@@ -305,6 +305,73 @@ def test_slab_entry_takes_the_wrappers_arguments():
                                                              dtype=t.dtype))
 
 
+def test_product_entry_takes_the_wrappers_arguments():
+    """B1's product entry points declare what ``kernel_matvec_cuda``
+    passes, and the source's sizes are the wrapper's."""
+    import ctypes
+    src = CU_SOURCE.read_text()
+    for symbol in ck._MATVEC_SYMBOLS.values():
+        decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src,
+                         re.DOTALL).group(1)
+        kinds = [ctypes.c_void_p if "*" in arg else ctypes.c_int
+                 for arg in decl.split(",")]
+        assert kinds == ck._matvec_argtypes(), symbol
+    for name, value in (("MV_CAP", ck.MATVEC_CAP),
+                        ("MV_THREADS", ck.MATVEC_THREADS),
+                        ("MV_STAGE", ck.MATVEC_STAGE),
+                        ("MV_TARGET_BLOCKS", ck.MATVEC_TARGET_BLOCKS)):
+        assert int(re.search(rf"#define {name} (\d+)", src).group(1)) == \
+            value, name
+
+
+def test_product_wrapper_refuses_what_it_does_not_take():
+    """A CPU tensor (the CPU's path is ``kernel_matvec_ref``), a V of the
+    wrong shape, rows outside K, and anything that requires grad; nothing
+    launches."""
+    t = _f64(_times(10))
+    p = _f64([1.0, 2.0])
+    v = torch.ones((10, 2), dtype=torch.float64)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ck.kernel_matvec_cuda(("SE",), p, t, v, 0.1)
+    for bad in (torch.ones(10, dtype=torch.float64),
+                torch.ones((9, 2), dtype=torch.float64),
+                torch.ones((10, 0), dtype=torch.float64)):
+        with pytest.raises(ValueError, match="v must be"):
+            ck.kernel_matvec_cuda(("SE",), p, t, bad, 0.1)
+    for r0, n_rows in ((-1, 4), (0, 0), (8, 3), (11, None)):
+        with pytest.raises(ValueError, match="rows"):
+            ck.kernel_matvec_cuda(("SE",), p, t, v, 0.1, r0, n_rows)
+    for args in ((p.clone().requires_grad_(True), v),
+                 (p, v.clone().requires_grad_(True))):
+        with pytest.raises(ValueError, match="no gradient"):
+            ck.kernel_matvec_cuda(("SE",), args[0], t, args[1], 0.1)
+    assert ck.LAUNCHES == before
+
+
+def test_product_route_is_chosen_by_structure():
+    """``kernel_matvec`` takes B1's product entry on a CUDA device for a
+    structure B1 takes, and the plain chunks for a non-stationary one and
+    on the CPU, where it is ``kernel_matvec_ref`` to the bit."""
+    from gpyrn_tpu_torch.ops import iterative as ti
+    for structure, _ in CASES:
+        assert ti.matvec_route(structure, "cuda") == "kernel"
+        assert ti.matvec_route(structure, torch.device("cuda", 0)) == \
+            "kernel"
+        assert ti.matvec_route(structure, "cpu") == "plain"
+    for structure in (("LIN",), ("+", ("SE",), ("LIN",)), ("WN",)):
+        assert ti.matvec_route(structure, "cuda") == "plain"
+    t = _f64(_times(40))
+    p = _f64(CASES[1][1])
+    v = _f64(np.random.default_rng(3).standard_normal((40, 2)))
+    before = dict(ck.LAUNCHES)
+    got = ti.kernel_matvec(("QP",), p, t, v, nugget=0.2, chunk=16, r0=5,
+                           n_rows=30)
+    assert ck.LAUNCHES == before
+    assert torch.equal(got, ck.kernel_matvec_ref(("QP",), p, t, v, 0.2, 16,
+                                                 5, 30))
+
+
 def test_ptxas_report_is_parsed():
     from gpyrn_tpu_torch.ops import _build
     log = """ptxas info    : 0 bytes gmem

@@ -4,7 +4,8 @@ small kernels made from a seed:
 
 * ``kernel_matvec`` with a ragged last row chunk, one and several
   right-hand sides, a stationary and a non-stationary kernel: 1e-13 of
-  max |y|;
+  max |y|; and with ``r0`` / ``n_rows`` (one rank's slab of rows), those
+  rows of the JAX package's product, at the same tolerance;
 * ``cg_solve`` plain, Jacobi, warm-started, with an SPD apply, with
   residual replacement and the achieved relres, and its breakdown guards
   (a zero right-hand side, an indefinite operator): the same iteration
@@ -77,6 +78,29 @@ def test_kernel_matvec(data, kernel, cols, chunk):
     v = v[:, 0] if cols is None else v
     mj, mt = _matvecs(t, kernel, 0.3, chunk)
     _close(mt(_t64(v)), mj(v), MATVEC_TOL)
+
+
+@pytest.fixture(scope="module")
+def jax_products(data):
+    """The JAX package's whole product per kernel, computed once."""
+    t, v = data
+    return {name: np.asarray(ji.kernel_matvec(s, pars, t, v, nugget=0.3,
+                                              chunk=8))
+            for name, (s, pars) in (("QP", QP), ("LIN", LIN))}
+
+
+@pytest.mark.parametrize("kernel", ["QP", "LIN"])
+@pytest.mark.parametrize("r0,n_rows", [(0, 10), (12, 25), (30, None)],
+                         ids=["first", "inner", "last"])
+def test_kernel_matvec_rows(data, jax_products, kernel, r0, n_rows):
+    """Rows [r0, r0 + n_rows) of the port's product, a stationary and a
+    non-stationary kernel, against those rows of the JAX package's."""
+    t, v = data
+    s, pars = {"QP": QP, "LIN": LIN}[kernel]
+    end = N if n_rows is None else r0 + n_rows
+    got = ti.kernel_matvec(s, _t64(pars), _t64(t), _t64(v), nugget=0.3,
+                           chunk=8, r0=r0, n_rows=n_rows)
+    _close(got, jax_products[kernel][r0:end], MATVEC_TOL)
 
 
 # cg_solve settings: (keywords, the nugget of K + nugget·I).  A nugget of

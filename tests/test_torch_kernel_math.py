@@ -24,6 +24,17 @@ held against the plain PyTorch versions on the CPU:
   inside the N × N matrix, the jitter on its diagonal only, identity in
   the padded rows and columns, and the plain version
   ``kernel_matrix_slab_ref`` to the forward tolerance.
+* B1's product entry ((K + nugget·I) @ V, rows [r0, r0 + n_rows)) run
+  block by block and thread by thread through the source's own steps
+  (``mv_group_range``, ``mv_row_stage``, ``mv_sum_groups`` of the
+  register path; ``mt_eval``, ``mt_product``, ``mt_store`` of the tiled
+  path, float64): ragged row tiles, steps, partial sums, K tiles, rows
+  and chunks of V,
+  the column groups of N=600 summed in order, m ∈ {1, 3, MV_CAP + 1}
+  (the register path's one- and eight-column instances, the tiled path),
+  against ``kernel_matvec_ref`` to 1e-13 of max |y| in float64; a slab's
+  rows equal the whole product's bit for bit; the group count equals the
+  wrapper's ``matvec_groups``.
 
 The times hold a repeated value, so r = 0 occurs off the diagonal as well
 as on it.  The kernels themselves run only on the card
@@ -63,6 +74,7 @@ INTERPRETER, PICKED = 0, 1
 TWO_SIDED, SYMMETRIC = 0, 1
 
 HARNESS = r"""
+#include <vector>
 #include "kernel_matrix.cu"
 
 static Program program(const int* ops, const int* offs, const int* lhs,
@@ -192,7 +204,117 @@ static void slab(const T* t, const T* par, T jit, T* out, int n, int n_pad,
     }
 }
 
+// B1's product entry as the card runs it, each block's threads in turn:
+// the register path (W sums a thread) over the column groups, then the
+// groups' sum pass
+template <typename T, int MODE, int W>
+static void matvec_register(const Program& p, const Setup<T>& s,
+                            const T* par, const T* t, const T* v, T nugget,
+                            T* y, int n, int m, int r0, int n_rows) {
+  const int groups = mv_groups(n);
+  std::vector<T> partial((size_t)groups * n_rows * m);
+  std::vector<T> ts(MV_STAGE), vs(MV_STAGE * W);
+  for (int g = 0; g < groups; ++g) {
+    int j0, j1;
+    mv_group_range(n, g, &j0, &j1);
+    for (int li = 0; li < n_rows; ++li) {
+      T acc[W];
+      for (int c = 0; c < W; ++c) acc[c] = T(0);
+      for (int s0 = j0; s0 < j1; s0 += MV_STAGE) {
+        const int cnt = j1 - s0 < MV_STAGE ? j1 - s0 : MV_STAGE;
+        for (int k = 0; k < cnt; ++k) {
+          ts[k] = t[s0 + k];
+          for (int c = 0; c < W; ++c)
+            vs[k * W + c] = c < m ? v[(size_t)(s0 + k) * m + c] : T(0);
+        }
+        mv_row_stage<T, MODE, W>(p, s.p0, s.c0, s.p1, s.c1, par, s.cst,
+                                 t[r0 + li], ts.data(), vs.data(), cnt, acc);
+      }
+      for (int c = 0; c < W && c < m; ++c)
+        partial[((size_t)g * n_rows + li) * m + c] = acc[c];
+    }
+  }
+  const size_t total = (size_t)n_rows * m;
+  for (size_t at = 0; at < total; ++at)
+    y[at] = mv_add_nugget(mv_sum_groups(&partial[at], groups, total), nugget,
+                          v[(size_t)(r0 + at / m) * m + at % m]);
+}
+
+// the tiled path: per block of MT_ROWS rows, per K tile, its threads'
+// evaluations, then per chunk of V their products and stores
+template <typename T, int MODE>
+static void matvec_tiled(const Program& p, const Setup<T>& s, const T* par,
+                         const T* t, const T* v, T nugget, T* y, int n,
+                         int m, int r0, int n_rows) {
+  const int cols = mt_cols<T>();
+  std::vector<T> kt(MT_LD * cols), vs(MT_K * MT_VLD), ti(MT_ROWS), tj(cols),
+      acc(MT_THREADS * 16);
+  const int tiles = (n + cols - 1) / cols;
+  for (int li0 = 0; li0 < n_rows; li0 += MT_ROWS) {
+    for (int r = 0; r < MT_ROWS; ++r)
+      ti[r] = li0 + r < n_rows ? t[r0 + li0 + r] : T(0);
+    for (int k = 0; k < tiles; ++k) {
+      const int jt = k * cols;
+      const int cnt = n - jt < cols ? n - jt : cols;
+      for (int q = 0; q < cols; ++q) tj[q] = q < cnt ? t[jt + q] : T(0);
+      for (int tid = 0; tid < MT_THREADS; ++tid)
+        mt_eval<T, MODE>(p, s.p0, s.c0, s.p1, s.c1, par, s.cst, ti.data(),
+                         tj.data(), cnt, tid, kt.data());
+      for (int mc = 0; mc < m; mc += MT_M) {
+        for (auto& a : acc) a = T(0);
+        for (int s0 = 0; s0 < cnt; s0 += MT_K) {
+          const int sc = cnt - s0 < MT_K ? cnt - s0 : MT_K;
+          for (int q = 0; q < MT_K * MT_M; ++q) {
+            const int jj = q / MT_M, col = mc + q % MT_M;
+            vs[jj * MT_VLD + q % MT_M] =
+                jj < sc && col < m ? v[(size_t)(jt + s0 + jj) * m + col]
+                                   : T(0);
+          }
+          for (int tid = 0; tid < MT_THREADS; ++tid)
+            mt_product(kt.data(), vs.data(), s0, sc, tid,
+                          reinterpret_cast<T(*)[4]>(&acc[tid * 16]));
+        }
+        for (int tid = 0; tid < MT_THREADS; ++tid)
+          mt_store<T>(y, v, nugget,
+                      reinterpret_cast<const T(*)[4]>(&acc[tid * 16]), tid,
+                      li0, r0, n_rows, mc, m, k == 0, k == tiles - 1);
+      }
+    }
+  }
+}
+
+template <typename T>
+static void matvec(const T* t, const T* par, const T* v, T nugget, T* y,
+                   int n, int m, int r0, int n_rows, int n_params,
+                   const int* ops, const int* offs, const int* lhs,
+                   const int* rhs, int n_ops) {
+  const Program p = program(ops, offs, lhs, rhs, n_ops);
+  const Setup<T> s(p, par, n_params);
+#define ARGS p, s, par, t, v, nugget, y, n, m, r0, n_rows
+#define RUN_MODE(MODE)                                      \
+  if (m > MV_CAP) matvec_tiled<T, MODE>(ARGS);               \
+  else if (m == 1) matvec_register<T, MODE, 1>(ARGS);        \
+  else matvec_register<T, MODE, MV_CAP>(ARGS);
+#define CASE(OP) case OP: RUN_MODE(OP); break;
+  switch (program_mode(p)) {
+    FOR_EACH_LEAF(CASE)
+    case MODE_PAIR: RUN_MODE(MODE_PAIR); break;
+    default: RUN_MODE(MODE_ANY); break;
+  }
+#undef CASE
+#undef RUN_MODE
+#undef ARGS
+}
+
 extern "C" {
+void matvec_f64(const double* t, const double* par, const double* v,
+                double nugget, double* y, int n, int m, int r0, int n_rows,
+                int n_params, const int* o, const int* f, const int* l,
+                const int* r, int k) {
+  matvec<double>(t, par, v, nugget, y, n, m, r0, n_rows, n_params, o, f, l,
+                 r, k);
+}
+int mv_groups_of(int n) { return mv_groups(n); }
 void slab_f64(const double* t, const double* par, double jit, double* out,
               int n, int n_pad, int r0, int n_rows, int m, const int* o,
               const int* f, const int* l, const int* r, int k) {
@@ -433,3 +555,56 @@ def test_slab_index_map(structure, pars, dtype, host_lib):
                                         torch.tensor(t), n_pad, r0, rows,
                                         torch.tensor(jit)).numpy()
         assert np.max(np.abs(out - ref)) <= fwd_tol * np.max(np.abs(ref))
+
+
+# B1's product entry: N=600 has three column groups (256, 256, 88 columns:
+# a ragged step and partial sum), five 128-row tiles (the last ragged); the
+# tiled path's 64-row blocks and K tiles of 128 columns are ragged too
+MATVEC_N = 600
+MATVEC_TOL = 1e-13
+MATVEC_CASES = [c for c in CASES if c[0] in
+                (("QP",), ("+", ("SE",), ("M32",)))] + [CASES[-1]]
+# (r0, n_rows): the whole product, a slab from row 0 and one that ends at N
+MATVEC_SLABS = ((0, None), (0, 150), (333, 267))
+
+
+@pytest.mark.parametrize("m", [1, 3, ck.MATVEC_CAP + 1])
+@pytest.mark.parametrize("structure,pars", MATVEC_CASES,
+                         ids=[str(c[0]) for c in MATVEC_CASES])
+def test_product_entry_matches_its_plain_version(structure, pars, m,
+                                                 host_lib):
+    rng = np.random.default_rng(MATVEC_N + m)
+    t = np.sort(rng.uniform(0, 100, MATVEC_N))
+    t[5] = t[4]
+    v = rng.standard_normal((MATVEC_N, m))
+    par = np.asarray(pars, dtype=np.float64)
+    code = _code(structure)
+    nugget = 0.3
+    assert host_lib.mv_groups_of(MATVEC_N) == ck.matvec_groups(MATVEC_N) == 3
+    whole = None
+    for r0, n_rows in MATVEC_SLABS:
+        rows = MATVEC_N - r0 if n_rows is None else n_rows
+        y = np.full((rows, m), np.nan)
+        host_lib.matvec_f64(_ptr(t), _ptr(par), _ptr(v),
+                            ctypes.c_double(nugget), _ptr(y), MATVEC_N, m,
+                            r0, rows, len(pars), *code)
+        ref = ck.kernel_matvec_ref(structure, torch.tensor(par),
+                                   torch.tensor(t), torch.tensor(v), nugget,
+                                   64, r0, n_rows).numpy()
+        assert np.max(np.abs(y - ref)) <= MATVEC_TOL * np.max(np.abs(ref))
+        if whole is None:
+            whole = y
+        else:   # a row's sums do not depend on the slab
+            np.testing.assert_array_equal(y, whole[r0:r0 + rows])
+
+
+@pytest.mark.parametrize("n", [1, 31, 127, 128, 129, 600, 4096, 20000,
+                               50000, 200000])
+def test_product_entry_groups(n, host_lib):
+    """The wrapper sizes the partial sums by the source's group count; a
+    group is whole steps of 256 columns, and the groups cover N."""
+    groups = ck.matvec_groups(n)
+    assert host_lib.mv_groups_of(n) == groups
+    assert 1 <= groups <= n
+    row_tiles = -(-n // ck.MATVEC_THREADS)
+    assert groups * row_tiles <= ck.MATVEC_TARGET_BLOCKS + row_tiles
