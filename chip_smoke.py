@@ -16,7 +16,11 @@ ends non-zero:
    operation counts in the SASS; the same for the QP instances of B1's
    slab and product entries, and the FP-pipe instructions per element of
    the QP instances (``pipe_per_element``), which every kernel's FP-pipe
-   bound below is counted from;
+   bound below is counted from; the resources of the product entry's
+   tiled instances of the models' leaves, the spills of all its
+   instances (one that a path launches fails the run after the paths),
+   and its register path's SASS issue count: every instruction of the
+   inner loop per element (``issue_per_element``);
 3. the gradient path, headline model (N=1000, q=1, p=3, QuasiPeriodic
    node, SquaredExponential weights): the 30-sweep
    ``elbo_value_and_grad`` in float64 against the JAX package's cached
@@ -125,9 +129,13 @@ ends non-zero:
     launches), and B1 against its plain version on a 256-row slab and
     timed against its bound; 26 the matrix-free solve at N=50,000
     (``kernel_matvec``, B1's product entry, against a float64 slab and
-    timed; the entry against its plain version and timed at m = 1, 64
-    and 1000 in float32 and float64 beside its bounds, its plain version
-    and B1's slab entry plus ``torch.matmul``; the plain version's row
+    timed; the entry against its plain version and timed at m = 1, 8,
+    16, 64 and 1000 in float32 and float64 beside its bounds (each
+    element of K evaluated once; above MATVEC_CAP the product on the FP64
+    tensor cores or the FP32 pipe; as diagnostics the tiled path's own
+    count of evaluations and the register path's SASS issue time), its
+    plain version and B1's slab
+    entry plus ``torch.matmul``; the plain version's row
     chunks; plain CG, the pivoted-Cholesky split preconditioner,
     ``cg_refined`` with a float64 residual); 27 the CG fit at N=50,000
     (5 float32 sweeps, the matvecs' share), CG against lean at N=10,000
@@ -177,7 +185,7 @@ ends non-zero:
     sweep) against ``elbo_refine_lean``, s/sweep, peak GiB, slab
     launches; ``cg_solve_sharded`` at N=50,000 in float32 against
     ``ops.iterative.cg_solve`` (its product entry launches counted, x
-    bit-equal or not), one rank's rows of the product (``slab_matvec``)
+    bit-equal), one rank's rows of the product (``slab_matvec``)
     bit for bit against ``kernel_matvec``'s; the whole padded slab
     (20,224 rows, the shape the path launches) of the QP node and of an
     SE weight against the plain version and B1's full-matrix rows; the
@@ -307,9 +315,11 @@ STACK_GRAD_TOL = {"float64": 1e-11, "float32": 1e-3}
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s in float32 and 34 TFLOP/s in float64
-# outside the tensor cores.  The kernels do no matrix products.
+# outside the tensor cores; 67 TFLOP/s in float64 on the tensor cores,
+# where the product entry's tiled path multiplies in float64 (mma.sync).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+TENSOR_FP64_FLOPS = 67e12
 # operations per lag of the timed structure (QP), from the kernels'
 # source, each add, multiply, divide, abs and each exp / sin / cos counted
 # once (a transcendental costs the card many more: a lower bound).  Both
@@ -324,6 +334,10 @@ OPS_PER_LAG = {"kernel_matrix": 17, "kernel_matrix_grad": 33}
 PIPE_OPS = {"float64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"),
             "float32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX")}
 PIPE_INSTR_PER_S = {k: v / 2 for k, v in PEAK_FLOPS.items()}
+# An SM issues 4 warp-instructions a clock, 128 lanes: the FP32 pipe's
+# width, so every SASS instruction (integer, load, branch, MUFU as much as
+# FP) takes an issue slot at the FP32 pipe's rate
+ISSUE_PER_S = PIPE_INSTR_PER_S["float32"]
 # the elements a thread of B1, B1' and the slab entry computes (16 bytes of
 # neighbouring columns in each of its rows): the copies of the element's
 # code in the instance
@@ -865,6 +879,124 @@ def pipe_per_element(_build):
     return _PIPE_COUNTS
 
 
+# The registers a thread of the product entry's tiled instances must get
+# from ptxas, which csrc MtShape's setmaxnreg split assumes: 65,536 over the
+# block's threads, rounded down to 8 (narrow: 128 + 768 threads; wide: 256
+# + 512).
+TILED_REGISTERS = {"tiled": 65536 // 896 // 8 * 8,
+                   "wide": 65536 // 768 // 8 * 8}
+# the product entry's instances: (kernel, dtype, op code or n1 / n2 for the
+# pair / the interpreter, register width or tiled shape: 0 narrow, 1 wide)
+_PRODUCT_INSTANCE = re.compile(
+    r"_Z\d+(kernel_matvec_kernel|kernel_matvec_tiled_kernel)I([df])"
+    r"Li(n?\d+)E(?:Li(\d+)E)?")
+_SASS_INSTR = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+
+
+def product_instance_key(entry, ck):
+    """The ``ck.MATVEC_INSTANCES`` key of a mangled product-entry
+    instance, or None for another kernel."""
+    m = _PRODUCT_INSTANCE.match(entry)
+    if not m:
+        return None
+    code = int(m[3].replace("n", "-"))
+    names = {c: tag for tag, c in ck.OPCODES.items()}
+    mode = {-1: "pair", -2: "any"}.get(code) or names[code]
+    if m[1] == "kernel_matvec_tiled_kernel":
+        width = "wide" if m[4] == "1" else "tiled"
+    else:
+        width = f"W={m[4]}"
+    dtype = {"d": "float64", "f": "float32"}[m[2]]
+    return f"{dtype} {mode} {width}"
+
+
+def _sass_ops(text):
+    """(operations, branches) of one kernel's SASS: each operation's name,
+    and (index, target index) of each branch (a target given as a label
+    or an address)."""
+    ops, where, raw = [], {}, []
+    for line in text.splitlines():
+        lab = _SASS_LABEL.match(line)
+        if lab:
+            where[lab[1]] = len(ops)
+            continue
+        ins = _SASS_INSTR.search(line)
+        if not ins:
+            continue
+        where[int(ins[1], 16)] = len(ops)
+        tgt = _SASS_TARGET.search(ins[4])
+        if ins[3].startswith("BRA") and tgt:
+            raw.append((len(ops), tgt[1] or int(tgt[2], 16)))
+        ops.append(ins[3].split(".")[0])
+    return ops, [(at, where[t]) for at, t in raw if t in where]
+
+
+def _sass_inner_loop(cuobjdump, library, entry, dtype):
+    """(SASS instructions, FP-pipe instructions) of one pass of a
+    kernel's element loop, a static count of its fast path: of each loop
+    (a backward branch's target to the branch), the instructions that no
+    forward branch inside it skips over a slow path (a skipped stretch
+    that holds a loop or a CALL: the math library's large-argument
+    reductions and division fallbacks, never taken at these lags); the
+    loop taken is the one with the most FP-pipe instructions among those
+    whose fast path holds no other loop.  None if there is none."""
+    ops, branches = _sass_ops(
+        _run([cuobjdump, "-sass", "-fun", entry, str(library)]))
+    loops = [(t, at) for at, t in branches if t <= at]
+    fp = PIPE_OPS[dtype]
+    best = None
+    for a, b in loops:
+        slow = set()
+        for at, t in branches:
+            if a <= at < t <= b:
+                body = range(at + 1, t)
+                if any(ops[i] == "CALL" for i in body) or any(
+                        c in body for c, _ in loops if c != at):
+                    slow.update(body)
+        fast = [i for i in range(a, b + 1) if i not in slow]
+        if any(a <= c and d <= b and (c, d) != (a, b) and d not in slow
+               for c, d in loops):
+            continue
+        count = (len(fast), sum(ops[i] in fp for i in fast))
+        if best is None or count[1] > best[1]:
+            best = count
+    return best
+
+
+_ISSUE_COUNTS = {}
+
+
+def issue_per_element(_build):
+    """{(dtype, width): (SASS instructions, FP-pipe instructions, elements)
+    of one pass of the inner loop} of the product entry's register-path
+    QP instances: the elements of a pass are the loop's FP-pipe
+    instructions over the element's (``pipe_per_element`` of the slab
+    entry, plus one fma a column).  Empty without cuobjdump.  Once per
+    process."""
+    if _ISSUE_COUNTS:
+        return _ISSUE_COUNTS
+    pipe = pipe_per_element(_build)
+    if not pipe:
+        return _ISSUE_COUNTS
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    library = _build.build("kernel_matrix")
+    for entry in _build.resource_usage(_build.build_log("kernel_matrix")):
+        m = _QP_INSTANCE.match(entry)
+        if not m or m[1] != "kernel_matvec_kernel":
+            continue
+        dtype, width = {"d": "float64", "f": "float32"}[m[2]], int(m[3])
+        loop = _sass_inner_loop(cuobjdump, library, entry, dtype)
+        if loop is None:
+            continue
+        per = pipe[("kernel_matrix_slab_kernel", dtype)] + width
+        _ISSUE_COUNTS[(dtype, width)] = (loop[0], loop[1],
+                                         max(1, round(loop[1] / per)))
+    return _ISSUE_COUNTS
+
+
 def _pipe_bound(_build, kernel, dtype, elements, extra=0):
     """(FP-pipe instructions per element, the least ms the pipe needs for
     ``elements`` of them): None where the count is missing.  ``extra``
@@ -937,7 +1069,10 @@ def phase_build(_build, ck):
             continue
         product += m[1].startswith("kernel_matvec")
         dtype = {"d": "float64", "f": "float32"}[m[2]]
-        width = f", {m[3]} columns" if m[3] else ""
+        if m[1] == "kernel_matvec_tiled_kernel":
+            width = ", wide" if m[3] == "1" else ", narrow"
+        else:
+            width = f", {m[3]} columns" if m[3] else ""
         line = (f"ptxas {m[1]}<{dtype}, QP{width}>: {use['registers']} "
                 f"registers, {use['stack_frame']} bytes stack frame, "
                 f"{use['spill_stores']} / {use['spill_loads']} bytes spill "
@@ -947,24 +1082,55 @@ def phase_build(_build, ck):
             line += (f"; SASS {total} FP-pipe instructions, {main} on the "
                      f"main line (static)")
         print(line, flush=True)
-    if product != 2 * 3:
-        raise AssertionError(f"the build log names {product} of the 6 QP "
+    # the register path's one- and MATVEC_CAP-column instances and the
+    # tiled path's narrow shape in both types, its wide shape in float32
+    if product != 2 * 3 + 1:
+        raise AssertionError(f"the build log names {product} of the 7 QP "
                              f"instances of B1's product entry")
-    mv = {e: u for e, u in usage.items() if "kernel_matvec" in e}
-    spilled = sorted(f"{e[4:].split('EvPK')[0]} {u['registers']}r/"
-                     f"{u['spill_stores']}/{u['spill_loads']}"
-                     for e, u in mv.items()
-                     if u["spill_stores"] or u["spill_loads"])
+    # the tiled instances of the models' leaves
+    for entry, use in sorted(usage.items()):
+        key = product_instance_key(entry, ck)
+        if key is None or key.split()[2] not in ("tiled", "wide") or \
+                key.split()[1] not in MAIN_PATH_LEAVES:
+            continue
+        print(f"ptxas kernel_matvec_tiled_kernel<{key.split()[0]}, "
+              f"{key.split()[1]}, {key.split()[2]}>: {use['registers']} "
+              f"registers, "
+              f"{use['stack_frame']} bytes stack frame, "
+              f"{use['spill_stores']} / {use['spill_loads']} bytes spill "
+              f"stores / loads", flush=True)
+    mv = {product_instance_key(e, ck): u for e, u in usage.items()
+          if product_instance_key(e, ck) is not None}
+    # setmaxnreg.inc waits for registers freed inside the block's own
+    # allocation: an instance given fewer than csrc MtShape assumes would
+    # hang the card, so it fails here
+    wrong = {k: u["registers"] for k, u in mv.items()
+             if k.split()[2] in TILED_REGISTERS
+             and u["registers"] != TILED_REGISTERS[k.split()[2]]}
+    if wrong:
+        raise AssertionError(f"tiled product-entry instances whose "
+                             f"registers are not {TILED_REGISTERS}: {wrong}")
+    spilled = {k: u for k, u in mv.items()
+               if u["spill_stores"] or u["spill_loads"]}
     print(f"ptxas, B1's product entry: {len(mv)} instances, "
           f"{min(u['registers'] for u in mv.values())}-"
           f"{max(u['registers'] for u in mv.values())} registers; "
           f"{len(spilled)} spill (registers/stores/loads in bytes): "
-          f"{', '.join(spilled)}", flush=True)
+          + ", ".join(f"{k} {u['registers']}r/{u['spill_stores']}/"
+                      f"{u['spill_loads']}" for k, u in sorted(
+                          spilled.items())), flush=True)
     counts = {f"{k}<{d}>": v
               for (k, d), v in pipe_per_element(_build).items()}
     print(f"FP-pipe instructions per element of the QP instances (the main "
           f"line over {ELEMENTS_PER_THREAD} elements a thread): {counts}",
           flush=True)
+    for (dtype, width), (instr, fp, elems) in sorted(
+            issue_per_element(_build).items()):
+        print(f"SASS inner loop of kernel_matvec_kernel<{dtype}, QP, "
+              f"{width}>: {instr} instructions, {fp} FP-pipe, {elems} "
+              f"elements a pass: {instr / elems:.2f} instructions an element "
+              f"(issue), {fp / elems:.2f} FP-pipe", flush=True)
+    return spilled
 
 
 def phase_stack(torch, ck, lin):
@@ -2887,12 +3053,12 @@ def b1_wide(torch, ck, lin, t64):
 
 
 # 26: B1's product entry against its plain version (relative to max |y|,
-# MATVEC_SLAB_TOL) and timed at m = 1 (CG), 64 (predict_iterative's
+# MATVEC_SLAB_TOL) and timed at m = 1 (CG), 8 (the register path's widest
+# instance), 16 (the tiled path's narrowest tile), 64 (predict_iterative's
 # default rhs_chunk) and PREDICT_RHS_CHUNK (phase 28's variance solves),
-# beside its bounds, its plain version and
-# a yardstick the port never calls: B1's slab entry and torch.matmul over
-# the same row chunks
-MATVEC_COLS = (1, 64, PREDICT_RHS_CHUNK)
+# beside its bounds, its plain version and a yardstick the port never
+# calls: B1's slab entry and torch.matmul over the same row chunks
+MATVEC_COLS = (1, 8, 16, 64, PREDICT_RHS_CHUNK)
 MATVEC_CHUNK = 2048
 
 
@@ -2907,12 +3073,60 @@ def _slab_yardstick(torch, ck, s, pars, t, v, nug, chunk=MATVEC_CHUNK):
         for r0 in range(0, N, chunk)])
 
 
+def matvec_bounds(_build, ck, N, m, dtype, n_params):
+    """The product entry's bounds (ms) for N rows and m columns, counting
+    only the work the function needs: the bytes of t, V and y; each element
+    of K evaluated once (its FP-pipe instructions from the SASS,
+    ``pipe_per_element``); the product's N² m fmas.  Register path (m <=
+    MATVEC_CAP): the evaluations and the fmas on the FP pipe.  Above it:
+    in float64 the product's 2 N² m FLOP on the FP64 tensor cores, beside
+    the one evaluation on the FP64 pipe (another unit: the larger binds);
+    in float32 both on the one FP32 pipe, added.  ``bound_ms`` is the
+    larger of the bytes and operations bounds.  Beside them, as
+    diagnostics of the kernel's own overhead, never as its bound: the
+    tiled path's evaluations of K as its tiling makes them, ceil(m / bn)
+    (``matvec_tile_cols``), and their time on the pipe; the register
+    path's SASS issue time, every instruction of its inner loop per
+    element (``issue_per_element``) at the issue rate.  Without cuobjdump,
+    the element's counted operations (OPS_PER_LAG) stand in for the
+    SASS."""
+    name = _dtype_name(dtype)
+    e = 4 if name == "float32" else 8
+    t_bytes = 1e3 * e * (N + 2 * N * m + n_params + 1) / HBM_BYTES_PER_S
+    per = pipe_per_element(_build).get(("kernel_matrix_slab_kernel", name))
+    rec = {"bytes_ms": t_bytes, "pipe_instructions_per_element": per}
+    eval_ms = 1e3 * N * N * (
+        OPS_PER_LAG["kernel_matrix"] / PEAK_FLOPS[name] if per is None
+        else per / PIPE_INSTR_PER_S[name])
+    fma_ms = 1e3 * N * N * m / PIPE_INSTR_PER_S[name]
+    rec["eval_bound_ms"] = eval_ms
+    if m <= ck.MATVEC_CAP:
+        ops_ms = eval_ms + fma_ms
+        issue = issue_per_element(_build).get(
+            (name, 1 if m == 1 else ck.MATVEC_CAP))
+        rec["sass_issue_ms"] = (None if issue is None else
+                                1e3 * N * N * issue[0] / issue[2]
+                                / ISSUE_PER_S)
+    else:
+        evals = -(-m // ck.matvec_tile_cols(m, dtype))
+        if name == "float64":
+            rec["tensor_bound_ms"] = 1e3 * 2 * N * N * m / TENSOR_FP64_FLOPS
+            ops_ms = max(rec["tensor_bound_ms"], eval_ms)
+        else:
+            ops_ms = fma_ms + eval_ms
+        rec.update(design_evaluations=evals,
+                   design_eval_ms=evals * eval_ms)
+    rec["pipe_bound_ms"] = ops_ms
+    rec["bound_ms"], rec["bound_by"] = ((t_bytes, "bytes") if t_bytes >= ops_ms
+                                        else (ops_ms, "operations"))
+    return rec
+
+
 def matvec_timed(torch, ck, s, pars, t, nug, m):
     """B1's product entry on N = len(t) rows and m random columns against
     its plain version (max abs and relative error), then timed in turns
-    (kernel, plain, yardstick, kernel; CUDA events), with its bounds:
-    bytes of t, V and y; the element's counted operations plus 2m per
-    element; the FP-pipe instructions of the element plus m FMAs."""
+    (kernel, plain, yardstick, kernel; CUDA events), with its bounds
+    (``matvec_bounds``)."""
     from gpyrn_tpu_torch.ops import _build
     N = t.shape[0]
     v = torch.tensor(np.random.default_rng(m).standard_normal((N, m)),
@@ -2932,31 +3146,47 @@ def matvec_timed(torch, ck, s, pars, t, nug, m):
     rel = err / float(ref.abs().max())
     y_err = float((yard() - ref).abs().max() / ref.abs().max())
     del y, ref
-    reps = 5 if m == 1 else 2
+    reps = 5 if m <= ck.MATVEC_CAP else 2
     ms_a = _time_ms(torch, kern, reps)
     plain_ms = _time_ms(torch, plain, reps)
     yard_ms = _time_ms(torch, yard, reps)
     ms_b = _time_ms(torch, kern, reps)
-    e = t.element_size()
-    n_ops = (OPS_PER_LAG["kernel_matrix"] + 2 * m) * N * N
-    bound_ms, bound_by = _bound(e * (N + 2 * N * m + pars.shape[0] + 1),
-                                n_ops, t.dtype)
-    per, pipe_ms = _pipe_bound(_build, "kernel_matrix_slab_kernel", t.dtype,
-                               N * N, extra=m)
+    rec = matvec_bounds(_build, ck, N, m, t.dtype, pars.shape[0])
     ms = min(ms_a, ms_b)
-    print(f"product entry QP N={N} m={m} {_dtype_name(t.dtype)}: "
+    path = "register" if m <= ck.MATVEC_CAP else (
+        f"tiled, {rec['design_evaluations']} evaluations of K")
+    extra = f"one evaluation {rec['eval_bound_ms']:.4f} ms" + (
+        f", tensor cores {rec['tensor_bound_ms']:.4f} ms"
+        if "tensor_bound_ms" in rec else "")
+    extra += (f"; overhead: SASS issue {rec['sass_issue_ms']} ms"
+              if m <= ck.MATVEC_CAP else
+              f"; overhead: the tiling's {rec['design_evaluations']} "
+              f"evaluations {rec['design_eval_ms']:.4f} ms")
+    print(f"product entry QP N={N} m={m} {_dtype_name(t.dtype)} ({path}): "
           f"{ms:.4f} ms ({ms_a:.4f}/{ms_b:.4f}), plain {plain_ms:.4f} ms, "
           f"yardstick (slab entry + matmul) {yard_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.3f} "
-          f"of it; FP-pipe bound {pipe_ms} ms ({per} instructions an "
-          f"element); vs plain max abs {err:.3e}, rel {rel:.3e}; yardstick "
-          f"rel {y_err:.3e}", flush=True)
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel at "
+          f"{rec['bound_ms'] / ms:.3f} of it; operations bound "
+          f"{rec['pipe_bound_ms']:.4f} ms ({rec['pipe_instructions_per_element']}"
+          f" FP-pipe instructions an element), {extra}; bytes "
+          f"{rec['bytes_ms']:.4f} ms; vs plain max abs {err:.3e}, rel "
+          f"{rel:.3e}; yardstick rel {y_err:.3e}", flush=True)
     torch.cuda.empty_cache()
     return {"N": N, "m": m, "max_abs_err": err, "rel_err": rel, "ms": ms,
             "plain_ms": plain_ms, "yardstick_ms": yard_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "pipe_bound_ms": pipe_ms, "pipe_instructions_per_element": per,
-            "library_ms": None}
+            "library_ms": None, **rec}
+
+
+def _counts(ck):
+    """The launch counts and the product entry's instance counts, to put
+    back after comparison and timing launches (``_put_back``)."""
+    return dict(ck.LAUNCHES), dict(ck.MATVEC_INSTANCES)
+
+
+def _put_back(ck, counts):
+    ck.LAUNCHES.update(counts[0])
+    ck.MATVEC_INSTANCES.clear()
+    ck.MATVEC_INSTANCES.update(counts[1])
 
 
 def _solve_problem(torch, dtype):
@@ -2980,7 +3210,7 @@ def phase_solve(torch, pkg, ck):
     out, checks = {}, []
     # comparison and timing launches, not the path's: the counts are put
     # back afterwards
-    saved = dict(ck.LAUNCHES)
+    saved = _counts(ck)
     # kernel_matvec against a float64 dense slab of K
     rows = torch.arange(0, SOLVE_N, SOLVE_N // SLAB_ROWS,
                         device="cuda")[:SLAB_ROWS]
@@ -3025,7 +3255,7 @@ def phase_solve(torch, pkg, ck):
                            f"plain", rec["rel_err"]
                            <= MATVEC_SLAB_TOL[_dtype_name(dtype)],
                            f"rel {rec['rel_err']:.3e}"))
-    ck.LAUNCHES.update(saved)
+    _put_back(ck, saved)
 
     def mv(x):
         return it.kernel_matvec(s, pars, t, x, nugget=nug)
@@ -3106,10 +3336,10 @@ def phase_cg_fit(torch, pkg, oracle, ck):
     cores = dict(zip(g.engine.spec.node_structs + g.engine.spec.weight_structs,
                      g.engine._lean_cores(theta)[0]
                      + g.engine._lean_cores(theta)[1]))
-    saved = dict(ck.LAUNCHES)      # timing launches, not the path's
+    saved = _counts(ck)            # timing launches, not the path's
     mv_ms = {s: _device_ms(torch, lambda s=s: it.kernel_matvec(
         s, cores[s], t32, t32[:, None], nugget=1e-6), 3) for s in matvecs}
-    ck.LAUNCHES.update(saved)
+    _put_back(ck, saved)
     share = sum(matvecs[s] * mv_ms[s] for s in matvecs) / 1e3 / wall
     out["fit"] = {"s_per_sweep": wall / n, "wall": wall, "relres": rres,
                   "peak_gib": peak, "cg_iters": solves,
@@ -3343,6 +3573,7 @@ def large_main(torch, pkg, ck, lin):
         (f"phase {k} launched kernel_matvec", v > 0, f"{v}")
         for k, v in matvec.items()])
     print(json.dumps({"launches": launches, "matvec_by_phase": matvec,
+                      "instances": dict(ck.MATVEC_INSTANCES),
                       "lean_vs_dense": rows,
                       "magma_batched_solve": magma,
                       "wide": wide, "solve": solve, "cg": cg,
@@ -3903,7 +4134,7 @@ def parallel_rank():
     out = {k: {kk: _host_np(vv) for kk, vv in v.items()}
            if isinstance(v, dict) else _host_np(v) for k, v in out.items()}
     out.update(rank=dist.get_rank(), launches=dict(ck.LAUNCHES),
-               slab_launches=panel, wall=time.perf_counter() - t0,
+               instances=dict(ck.MATVEC_INSTANCES), slab_launches=panel, wall=time.perf_counter() - t0,
                slab=slab_check(torch, ck, dist.get_rank(), PARALLEL_RANKS))
     return out
 
@@ -4027,11 +4258,21 @@ def phase_parallel_ranks(torch, pkg):
     launches = {k: sum(x["launches"][k] for x in ranks)
                 for k in ranks[0]["launches"]}
     return {"launches": launches, "wall": wall,
+            "instances": _merged([x["instances"] for x in ranks]),
             "slab_launches": sum(x["slab_launches"] for x in ranks),
             "slab_max_abs_err": max(x["slab"]["max_abs_err"]
                                     for x in ranks),
             "slab_bits_equal": all(x["slab"]["bits_equal_b1_rows"]
                                    for x in ranks)}
+
+
+def _merged(counts):
+    """The sum of several {instance: launches} dicts."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def _slab_times(torch, ck, N, rows=SLAB_ROWS):
@@ -4111,6 +4352,7 @@ def wide_rank():
     (x_s, it_s), wall_s = _timed(torch, lambda: cg_solve_sharded(
         ("QP",), pars, tt, b, mesh, nugget=nug, **CG_WIDE))
     cg_launches = dict(ck.LAUNCHES)
+    out["instances"] = dict(ck.MATVEC_INSTANCES)
     out["launches"] = {k: launches[k] + cg_launches[k] for k in launches}
     # the comparisons: cg_solve, and one rank's slab of the product
     k0 = it.kernel_diag(("QP",), pars, tt, 0.0)
@@ -4192,6 +4434,8 @@ def phase_parallel_wide(torch):
          f"{w['var_err']:.3e}"),
         ("cg_solve_sharded vs cg_solve", w["cg"]["ok"],
          f"max abs {w['cg']['max_abs']:.3e}"),
+        ("cg_solve_sharded's x bit-equal to cg_solve's",
+         w["cg"]["bits_equal"], ""),
         ("cg_solve_sharded launched kernel_matvec", w["cg"]["launches"] > 0,
          f"{w['cg']['launches']}"),
         ("slab_matvec rows bit-equal to kernel_matvec's",
@@ -4221,6 +4465,7 @@ def parallel_main(torch, pkg):
           f"{matvec}); phases 33-34 took {wall:.1f} s", flush=True)
     print(json.dumps({
         "launches": launches, "seconds": wall, "matvec_by_phase": matvec,
+        "instances": _merged([ranks["instances"], wide["instances"]]),
         "cg_wide": wide["cg"],
         "slab": {"launches": (ranks["slab_launches"]
                               + wide["launches"]["kernel_matrix"]),
@@ -4281,7 +4526,7 @@ def main():
     print(f"card: {smi}", flush=True)
 
     print("== phase 2: build", flush=True)
-    phase_build(_build, ck)
+    spilled = phase_build(_build, ck)
 
     with open(ORACLE) as f:
         oracle = json.load(f)
@@ -4488,6 +4733,16 @@ def main():
                "solar": solar_launches["kernel_matvec"],
                "serving": serving_launches["kernel_matvec"],
                "parallel": parallel_launches["kernel_matvec"]}
+    # the product entry's instances the paths launched: none may spill
+    instances = _merged([large["instances"], parallel["instances"]])
+    launched_spills = sorted(k for k in instances if k in spilled)
+    print(f"B1's product entry, instances the paths launched: {instances}; "
+          f"of them spill: {launched_spills}; instances that spill and no "
+          f"path launched: {sorted(set(spilled) - set(instances))}",
+          flush=True)
+    if launched_spills:
+        raise AssertionError(f"the paths launched product-entry instances "
+                             f"that spill: {launched_spills}")
     main_rec = product["float32 m=1"]
     kernels.append({
         "name": "kernel_matvec", "route": "cuda",
@@ -4498,8 +4753,9 @@ def main():
                               **parallel["matvec_by_phase"]},
         **{k: main_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
-                                    "pipe_bound_ms", "yardstick_ms")},
-        "n50000": product})
+                                    "pipe_bound_ms", "sass_issue_ms",
+                                    "yardstick_ms")},
+        "launches_by_instance": instances, "n50000": product})
     if min(by_path["large"], by_path["parallel"]) == 0:
         raise AssertionError(f"the matrix-free paths never launched "
                              f"kernel_matvec: {by_path}")

@@ -13,10 +13,13 @@ dense kernel matrices and their backward come from hand-written CUDA
 kernels (``csrc/kernel_matrix.cu``), built with nvcc at first use.  The
 package imports torch and never jax.
 
-The names below are imported on first use, so that a serving process
-(``serving.load_predict``) loads neither the shell nor the engine.
+The names below are the JAX package's top-level names
+(``gpyrn_tpu/__init__.py``), each imported on first use, so that a
+serving process (``serving.load_predict``) loads neither the shell nor
+the engine.
 
 >>> from gpyrn_tpu_torch import inference, covfunc, meanfunc, GP
+>>> from gpyrn_tpu_torch import Constant, QuasiPeriodic, priors, serving
 """
 import importlib
 import sys
@@ -26,13 +29,28 @@ __version__ = "0.1.0"
 
 from gpyrn_tpu_torch import config  # noqa: F401,E402  (numerics policy)
 
-__all__ = ["inference", "covfunc", "meanfunc", "GP"]
+__all__ = [
+    "inference", "covfunc", "meanfunc", "meanfield", "evidence",
+    "nonparametric", "priors", "datasets", "serving", "GP",
+    "Constant", "Linear", "SquaredExponential", "QuasiPeriodic",
+]
 
 # name -> (module, attribute of it, or None for the module itself)
 _LAZY = {"inference": ("gpyrn_tpu_torch.inference.meanfield", "inference"),
          "covfunc": ("gpyrn_tpu_torch.ops.kernels", None),
          "meanfunc": ("gpyrn_tpu_torch.ops.means", None),
-         "GP": ("gpyrn_tpu_torch.models.gp", "GP")}
+         "meanfield": ("gpyrn_tpu_torch.inference.meanfield", None),
+         "evidence": ("gpyrn_tpu_torch.inference.evidence", None),
+         "nonparametric": ("gpyrn_tpu_torch.inference.nonparametric", None),
+         "priors": ("gpyrn_tpu_torch.inference.priors", None),
+         "datasets": ("gpyrn_tpu_torch.datasets", None),
+         "serving": ("gpyrn_tpu_torch.serving", None),
+         "GP": ("gpyrn_tpu_torch.models.gp", "GP"),
+         "Constant": ("gpyrn_tpu_torch.ops.means", "Constant"),
+         "Linear": ("gpyrn_tpu_torch.ops.means", "Linear"),
+         "SquaredExponential": ("gpyrn_tpu_torch.ops.kernels",
+                                "SquaredExponential"),
+         "QuasiPeriodic": ("gpyrn_tpu_torch.ops.kernels", "QuasiPeriodic")}
 
 
 def __getattr__(name):

@@ -76,17 +76,19 @@
 // leaves to XLA (row chunks of K, each written out and multiplied), and
 // takes the slab entry's element rule: each element is program_value of
 // B1's instance for the structure, with B1's leaf_consts, so K has B1's
-// bits.  What bounds it: for a few columns the element's FP pipe (tens to
-// hundreds of instructions an element) against 3 N values of traffic for
-// m = 1; for many, the m multiply-adds of each element.  So:
+// bits.  What bounds it: the evaluations of K on the FP pipe (45 float /
+// 68 double FP-pipe instructions an element for QP, more in all SASS
+// instructions, which share the SM's issue slots) against 3 N values of
+// traffic for m = 1; for many columns also the 2 N^2 m operations of the
+// product, on the FP64 tensor cores in double (67 TFLOP/s on an H100 SXM)
+// and the FP32 pipe in float.  So:
 //
-//   * Every element is evaluated once per call, in registers, and is never
-//     stored.
 //   * m <= MV_CAP (the register path): one thread per row; a block of
 //     MV_THREADS rows walks its group of columns in steps of MV_STAGE,
 //     t and V of the next step copied into shared memory with cp.async
 //     while the current one is read (two buffers).  A row's m sums stay in
-//     registers.
+//     registers; four columns (two in the one-column float instance) are
+//     evaluated together from one broadcast load of their times.  Every element is evaluated once.
 //   * Sums in a fixed tree: a fresh partial over each MV_SUM columns, the
 //     partials of a column group added in order, the groups added in order
 //     by a second kernel (kernel_matvec_sum).  A float32 sum over 50,000
@@ -97,14 +99,56 @@
 //     blocks.  The split is chosen from N alone, never from r0 or n_rows,
 //     so a rank's slab of rows gets the bits of the same rows of the whole
 //     product.  No atomics: the same bits from run to run.
-//   * m > MV_CAP (the tiled path): a block of MT_ROWS rows evaluates a
-//     tile of K (mt_cols columns) once into shared memory and multiplies
-//     it against every chunk of MT_M columns of V in turn: in double on
-//     the tensor cores (mma.sync m8n8k4, FP64), in float on the CUDA cores
-//     (4 x 4 outputs a thread from 16-byte loads; TF32 would not keep
-//     float's digits).  A tile's sums of each chunk go to y and back, in
-//     the order of the tiles (no split: the chunks of V fill the card).
-//     Every element is still evaluated once, whatever m.
+//   * m > MV_CAP (the tiled path), output-stationary and warp-specialized:
+//     block (x, c) owns a bm x bn tile of y in registers and walks all N
+//     columns of K in k-blocks of bk (48 in float, 36 in double), in
+//     order, through a ring of three stages in shared memory.  Its producer
+//     warps copy each k-block's slice of t and bk x bn tile of V in
+//     (cp.async, one k-block ahead) and evaluate its bm x bk tile of K on
+//     the FP pipe; its consumer warps multiply each K tile into the sums
+//     while the producers evaluate the next: in double on the tensor cores
+//     (mma.sync m16n8k8 in float64, a warp a 64 x 32 tile; a k-block's
+//     last 4 columns on m16n8k4), in float on the CUDA cores (an 8 x 8
+//     micro-tile a thread from 16-byte loads, a fresh partial every
+//     k-block; TF32 would not keep float's digits).
+//     Named barriers hand each stage over (full: the producers arrive,
+//     the consumers wait; empty: the other way round).  y is written
+//     once, with the nugget's term; no sum goes to memory and back.  The
+//     grid is the row tiles times the column tiles of m: at N = 20,000,
+//     m = 1000, 313 x 8 = 2,504 blocks in double.
+//   * Why the split: the element's code is long, branchy (the math
+//     library's fallbacks) and dependent, so its latency is hidden only by
+//     many warps in flight, while the sums want many registers.  setmaxnreg
+//     shares the SM's 65,536 registers (one block an SM): the narrow shape
+//     gives 128 consumers 208 registers (64 sums and their operands, or 64
+//     sums and 64 partials) and 768 producers 48; the wide shape, float's
+//     above 128 columns, 256 consumers 160 and 512 producers 40.  (Without
+//     the split every thread of a block that holds the sums has their
+//     registers, and too few warps are left to hide the evaluations;
+//     sharing K's tiles between the column tiles of a cluster cost more in
+//     cross-SM fences than the evaluations it saved: both timed slower on
+//     an H100, PERF.md section 6.)
+//   * The tile's width bn is set by K's evaluations: each element of K is
+//     evaluated ceil(m / bn) times.  One evaluation at N = 50,000 needs the
+//     FP64 pipe for >= 10.0 ms (67 instructions an element at 16.75 * 10^12
+//     a second) and the issue slots for >= 12 ms (163 SASS instructions an
+//     element); the product at m = 1000 needs the tensor cores for >= 74.6
+//     ms (2 N^2 m = 5 * 10^12 FLOP at 67 * 10^12), which bn = 128 about
+//     balances (8 evaluations).  The consumers' registers cap the tile at
+//     MT_SUMS sums a consumer: 64 x 128, or 128 x 64 for m <= 64 so that a
+//     narrow V wastes no columns; float's wide shape takes 64 x 256, 4
+//     evaluations at m = 1000 (in double its 256 producers were too few).
+//     Shared memory: three stages of the K tile bk x (bm + 4), V's tile
+//     bk x (bn + 4) and t's bk values: 170 KB in double, 113 KB (narrow) or
+//     185 KB (wide) in float; the +4 keeps the float64 fragment loads
+//     (8 rows x 4 columns a warp) off each other's banks and the float
+//     loads 16-byte aligned.  bk is a multiple of the producer lanes that
+//     share a tile's columns (6, 8 or 12 in float, 6 or 12 in double), so
+//     every producer evaluates as many elements of a tile as every other;
+//     48 in double would need two stages, which timed slower.
+//   * Fixed order, no atomics, no split of N: an output's sum runs over the
+//     k-blocks in order, fixed by N, so a slab's rows get the bits of the
+//     same rows of the whole product whatever its row tiles.
 //
 // Not here: each lag once (K's symmetry), which needs a scatter to y_j.
 //
@@ -830,23 +874,14 @@ __host__ __device__ __forceinline__ T slab_element(int i, int j, int n, T k,
 
 // ---- B1's product entry: the per-thread steps, shared with the host ------
 //
-// Sizes.  MV_CAP must equal MATVEC_CAP in cuda_kernels.py.
+// Sizes.  MV_CAP and MV_STAGE must equal MATVEC_CAP and MATVEC_STAGE in
+// cuda_kernels.py.
 #define MV_THREADS 128          // register path: rows of a block, one a thread
 #define MV_STAGE 256            // register path: columns staged per step
 #define MV_SUM 32               // register path: columns of a fresh partial
 #define MV_CAP 8                // the register path takes m <= MV_CAP
 #define MV_TARGET_BLOCKS 4096   // blocks the column split aims at
-#define MT_ROWS 64              // tiled path: rows of a block
-#define MT_TILE_BYTES 65536     // tiled path: the K tile (MT_ROWS x mt_cols)
-#define MT_M 64                 // tiled path: columns of V per chunk
-#define MT_K 32                 // tiled path: rows of V staged at a time
-// tiled path: the strides of the K tile's columns and of the staged rows
-// of V, 4 past MT_ROWS and MT_M so that the float64 product's operand
-// loads (8 rows x 4 columns a warp) meet no bank twice and the float
-// product's 16-byte loads stay aligned
-#define MT_LD (MT_ROWS + 4)
-#define MT_VLD (MT_M + 4)
-#define MT_THREADS 256          // tiled path: threads of a block, 16 x 16
+#define MT_SUMS 64              // tiled path: the sums a consumer thread holds
 
 __device__ __forceinline__ float mv_fma(float a, float b, float c) {
 #ifdef __CUDACC__
@@ -892,67 +927,27 @@ __device__ __forceinline__ T mv_add_nugget(T s, T nugget, T v) {
   return s + nugget * v;
 }
 
-// Register path, one thread on one staged step: row time ti against the
-// cnt <= MV_STAGE columns ts[0 .. cnt) and their values vs[j * W + c];
-// acc[c] gains one partial sum per MV_SUM columns, each taken from 0.
-template <typename T, int MODE, int W>
-__device__ __forceinline__ void mv_row_stage(
-    const Program& prog, const T* p0, const T* c0, const T* p1, const T* c1,
-    const T* par, const T* cst, T ti, const T* ts, const T* vs, int cnt,
-    T* acc) {
-  for (int s = 0; s < cnt; s += MV_SUM) {
-    const int e = cnt < s + MV_SUM ? cnt : s + MV_SUM;
-    T part[W];
-#pragma unroll
-    for (int c = 0; c < W; ++c) part[c] = T(0);
-    for (int j = s; j < e; ++j) {
-      const T k = program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
-                                         ti - ts[j]);
-#pragma unroll
-      for (int c = 0; c < W; ++c) part[c] = mv_fma(k, vs[j * W + c], part[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < W; ++c) acc[c] = acc[c] + part[c];
-  }
+// Two or four neighbouring values from shared memory (aligned to their
+// size on the card: 8- or 16-byte loads; a broadcast where a warp reads
+// one address).
+__device__ __forceinline__ void load2(const float* p, float* v) {
+#ifdef __CUDACC__
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+#else
+  for (int u = 0; u < 2; ++u) v[u] = p[u];
+#endif
 }
-
-// The groups' partial sums of one output, partial[g * stride], in order.
-template <typename T>
-__device__ __forceinline__ T mv_sum_groups(const T* partial, int groups,
-                                           size_t stride) {
-  T s = partial[0];
-  for (int g = 1; g < groups; ++g) s = s + partial[(size_t)g * stride];
-  return s;
+__device__ __forceinline__ void load2(const double* p, double* v) {
+#ifdef __CUDACC__
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+#else
+  for (int u = 0; u < 2; ++u) v[u] = p[u];
+#endif
 }
-
-// Tiled path: the columns of the K tile, 64 KB of it in shared memory
-// (256 in float, 128 in double).
-template <typename T>
-__host__ __device__ __forceinline__ constexpr int mt_cols() {
-  return MT_TILE_BYTES / (MT_ROWS * (int)sizeof(T));
-}
-
-// Tiled path, thread tid's part of the K tile, stored column by column:
-// kt[j * MT_LD + r] = k(ti[r] - tj[j]), thread tid taking row
-// tid % MT_ROWS of every fourth column; 0 past the tile's cnt columns.
-template <typename T, int MODE>
-__device__ __forceinline__ void mt_eval(const Program& prog, const T* p0,
-                                        const T* c0, const T* p1, const T* c1,
-                                        const T* par, const T* cst,
-                                        const T* ti, const T* tj, int cnt,
-                                        int tid, T* kt) {
-  const int r = tid % MT_ROWS;
-  const T tir = ti[r];
-  for (int j = tid / MT_ROWS; j < mt_cols<T>(); j += MT_THREADS / MT_ROWS) {
-    kt[j * MT_LD + r] =
-        j < cnt ? program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
-                                         tir - tj[j])
-                : T(0);
-  }
-}
-
-// Four neighbouring values from shared memory (16-byte aligned on the
-// card: one or two 16-byte loads).
 __device__ __forceinline__ void load4(const float* p, float* v) {
 #ifdef __CUDACC__
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -977,114 +972,348 @@ __device__ __forceinline__ void load4(const double* p, double* v) {
 #endif
 }
 
-// Tiled path: where thread tid's 16 outputs acc[a][b] lie in the block's
-// MT_ROWS x MT_M chunk.  In float a thread holds rows ty * 4 + a and
-// columns tx * 4 + b (tid = 16 ty + tx); in double, the accumulators of
-// the tensor cores' 8 x 8 tiles (mma m8n8k4): warp w = 4 wn + wm takes
-// rows 16 wm + [0, 16) and columns 32 wn + [0, 32), two by four tiles;
-// lane l holds row l / 4 and columns 2 (l % 4) + [0, 2) of each.
-template <typename T>
-__host__ __device__ __forceinline__ int mt_row(int tid, int a, int b) {
-  if (sizeof(T) == 4) return tid / 16 * 4 + a;
-  const int f = a * 4 + b, w = tid / 32, lane = tid % 32;
-  return 16 * (w % 4) + 8 * (f / 8) + lane / 4;
-}
-template <typename T>
-__host__ __device__ __forceinline__ int mt_col(int tid, int a, int b) {
-  if (sizeof(T) == 4) return tid % 16 * 4 + b;
-  const int f = a * 4 + b, w = tid / 32, lane = tid % 32;
-  return 32 * (w / 4) + 8 * (f / 2 % 4) + 2 * (lane % 4) + f % 2;
+// U neighbouring values (U = 1, 2 or 4) from shared memory, aligned to U.
+template <int U, typename T>
+__device__ __forceinline__ void load_cols(const T* p, T* v) {
+  if constexpr (U == 4) {
+    load4(p, v);
+  } else if constexpr (U == 2) {
+    load2(p, v);
+  } else {
+    v[0] = p[0];
+  }
 }
 
-// Tiled path, float: thread tid's 4 x 4 outputs gain, in order, the
-// products of the tile's columns [j0, j0 + cnt) of kt with V's staged rows
-// vs[jj * MT_VLD + col], jj = j - j0 (CUDA cores, 16-byte loads).
+// Register path: the columns a pass of a row's loop loads and evaluates
+// together (their times, and for W = 1 their values, in one load; their
+// evaluations unrolled): four, but one in the one-column float instances,
+// whose plain column loop the compiler unrolls itself: there, passes of
+// two or four columns keep registers live across the math library's
+// out-of-line division fallback, which ptxas saves as spills (an H100
+// build, PERF.md section 6).
+template <typename T, int W>
+__host__ __device__ constexpr int mv_pass_cols() {
+  return sizeof(T) == 4 && W == 1 ? 1 : 4;
+}
+
+// Register path: the W values of one staged column of V (16-byte loads
+// where W is a multiple of 4; the staged rows are 16-byte aligned).
+template <typename T, int W>
+__device__ __forceinline__ void mv_load_row(const T* p, T* v) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W; c += 4) load4(p + c, v + c);
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) v[c] = p[c];
+  }
+}
+
+// Register path, one thread on one staged step: row time ti against the
+// cnt <= MV_STAGE columns ts[0 .. cnt) and their values vs[j * W + c];
+// acc[c] gains one partial sum per MV_SUM columns, each taken from 0, its
+// products added in column order.  A pass takes mv_pass_cols columns,
+// which leaves each sum's order as it is.
+template <typename T, int MODE, int W>
+__device__ __forceinline__ void mv_row_stage(
+    const Program& prog, const T* p0, const T* c0, const T* p1, const T* c1,
+    const T* par, const T* cst, T ti, const T* ts, const T* vs, int cnt,
+    T* acc) {
+  constexpr int U = mv_pass_cols<T, W>();
+  static_assert(MV_SUM % 4 == 0, "a partial's columns come in whole passes");
+  for (int s = 0; s < cnt; s += MV_SUM) {
+    const int e = cnt < s + MV_SUM ? cnt : s + MV_SUM;
+    T part[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) part[c] = T(0);
+    int j = s;
+    for (; U > 1 && j + U <= e; j += U) {
+      T tj[U], vv[U];
+      load_cols<U>(ts + j, tj);
+      if constexpr (W == 1) load_cols<U>(vs + j, vv);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const T k = program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                           ti - tj[u]);
+        if constexpr (W == 1) {
+          part[0] = mv_fma(k, vv[u], part[0]);
+        } else {
+          T vw[W];
+          mv_load_row<T, W>(vs + (j + u) * W, vw);
+#pragma unroll
+          for (int c = 0; c < W; ++c) part[c] = mv_fma(k, vw[c], part[c]);
+        }
+      }
+    }
+    for (; j < e; ++j) {  // what the passes leave: every column at U = 1
+      const T k = program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                         ti - ts[j]);
+#pragma unroll
+      for (int c = 0; c < W; ++c) part[c] = mv_fma(k, vs[j * W + c], part[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = acc[c] + part[c];
+  }
+}
+
+// The groups' partial sums of one output, partial[g * stride], in order.
+template <typename T>
+__device__ __forceinline__ T mv_sum_groups(const T* partial, int groups,
+                                           size_t stride) {
+  T s = partial[0];
+  for (int g = 1; g < groups; ++g) s = s + partial[(size_t)g * stride];
+  return s;
+}
+
+// Tiled path: a block's tile of y, bm x bn, is MT_SUMS outputs a consumer
+// thread, in registers: an 8 x 8 micro-tile of floats (and its partials),
+// or 64 doubles of a warp's 64 x 32 tile of mma accumulators.  A block's
+// shape (setmaxnreg shares the SM's 65,536 registers between its consumer
+// and producer threads; one block an SM):
+//   narrow: 128 consumers (208 registers) and 768 producers (48): tiles
+//     128 x 64 (m <= 64) or 64 x 128;
+//   wide, float at m > 128: 256 consumers (160 registers) and 512
+//     producers (40): 64 x 256 tiles, so that K is evaluated ceil(m / 256)
+//     times, not ceil(m / 128) (in double the consumers' registers would
+//     leave room for 256 producers only, too few: slower on an H100).
+// K's columns come in k-blocks of bk, 48 in float and 36 in double, so
+// that every producer evaluates as many elements of a K tile as every
+// other (48 columns over 6, 8 or 12 producer lanes, 36 over 6 or 12),
+// through a ring of three stages (in double three stages of 48 would not
+// fit).
+template <typename T, int WIDE>
+struct MtShape {
+  static constexpr int consumers = WIDE ? 256 : 128;
+  static constexpr int producers = WIDE ? 512 : 768;
+  static constexpr int threads = consumers + producers;
+  static constexpr int consumer_regs = WIDE ? 160 : 208;
+  static constexpr int producer_regs = WIDE ? 40 : 48;
+  // setmaxnreg moves registers only within the block's own allocation,
+  // threads x (65,536 / threads rounded down to 8): a block that asked
+  // for more would wait in setmaxnreg.inc for ever
+  static_assert(consumers * consumer_regs + producers * producer_regs <=
+                    threads * (65536 / threads / 8 * 8),
+                "the block's registers after setmaxnreg");
+  static constexpr int bk = sizeof(T) == 4 ? 48 : 36;
+  static constexpr int stages = 3;
+  // a tile of bn columns has producers * bn / (consumers * MT_SUMS) lanes
+  // of producers over its columns (bn 64 or 128 narrow, 256 wide)
+  static_assert(WIDE ? sizeof(T) == 8 ||
+                           bk % (producers * 256 / (consumers * MT_SUMS)) == 0
+                     : bk % (producers * 64 / (consumers * MT_SUMS)) == 0 &&
+                           bk % (producers * 128 / (consumers * MT_SUMS)) == 0,
+                "every producer lane of a tile evaluates as many columns");
+};
+
+// The tile's columns bn for m columns of V: 64 for m <= 64, else 128, or
+// 256 in the wide shape; the tile's rows are bm = consumers * MT_SUMS /
+// bn.  It depends on m alone, so a slab of rows sums as the whole product
+// does.
+template <typename T>
+__host__ __device__ __forceinline__ int mt_wide(int m) {
+  return sizeof(T) == 4 && m > 128;
+}
+template <typename T>
+__host__ __device__ __forceinline__ int mt_bn(int m) {
+  return m <= 64 ? 64 : mt_wide<T>(m) ? 256 : 128;
+}
+template <typename T>
+__host__ __device__ __forceinline__ int mt_bm(int m) {
+  return (mt_wide<T>(m) ? 256 : 128) * MT_SUMS / mt_bn<T>(m);
+}
+// the producer threads of m's shape
+template <typename T>
+__host__ __device__ __forceinline__ int mt_producers(int m) {
+  return mt_wide<T>(m) ? MtShape<T, 1>::producers
+                       : MtShape<T, 0>::producers;
+}
+template <typename T>
+__host__ __device__ __forceinline__ constexpr int mt_bk() {
+  return MtShape<T, 0>::bk;
+}
+
+// Tiled path, producer thread p's part of the K tile of the k-block [j0,
+// j0 + mt_bk): kt[k * (bm + 4) + r] = k(ti - ts[k]) for the tile's row
+// r = p % bm, every (np / bm)-th column from p / bm (np producers); 0 past
+// N.
+// ts holds t[j0 + k].  The +4 keeps the float64 operand loads off each
+// other's banks.  One element at a time: its code is branchy (the math
+// library's fallbacks), so its latency is hidden by the many producer
+// warps, not by interleaving.
+template <typename T, int MODE>
+__device__ __forceinline__ void mt_eval(const Program& prog, const T* p0,
+                                        const T* c0, const T* p1, const T* c1,
+                                        const T* par, const T* cst, T ti,
+                                        const T* ts, int n, int j0, int bm,
+                                        int np, int p, T* kt) {
+  const int r = p % bm;
+#pragma unroll 1
+  for (int k = p / bm; k < mt_bk<T>(); k += np / bm) {
+    kt[k * (bm + 4) + r] =
+        j0 + k < n ? program_value<T, MODE>(prog, p0, c0, p1, c1, par, cst,
+                                            ti - ts[k])
+                   : T(0);
+  }
+}
+
+// Tiled path: where consumer thread tid's output f lies in the block's
+// bm x bn tile.  In float, thread (ty, tx) = (tid / (bn / 8), tid %
+// (bn / 8)) holds rows ty * 4 + [0, 4) and bm / 2 + ty * 4 + [0, 4),
+// columns tx * 4 + [0, 4) and bn / 2 + tx * 4 + [0, 4) (16-byte loads
+// that meet no bank twice), f = 8 * row + column of the micro-tile.  In
+// double, warp w takes rows 64 (w % (bm / 64)) + [0, 64) and columns
+// 32 (w / (bm / 64)) + [0, 32): four by four m16n8 accumulator tiles,
+// lane l holding rows l / 4 and l / 4 + 8, columns 2 (l % 4) + [0, 2) of
+// each, f = 4 (4 mi + ni) + v.
+template <typename T>
+__host__ __device__ __forceinline__ int mt_row(int tid, int f, int bm,
+                                               int bn) {
+  if (sizeof(T) == 4) {
+    const int i = f / 8;
+    return tid / (bn / 8) * 4 + i % 4 + i / 4 * (bm / 2);
+  }
+  const int wm = tid / 32 % (bm / 64), g = tid % 32 / 4;
+  return 64 * wm + 16 * (f / 16) + 8 * (f % 4 / 2) + g;
+}
+template <typename T>
+__host__ __device__ __forceinline__ int mt_col(int tid, int f, int bm,
+                                               int bn) {
+  if (sizeof(T) == 4) {
+    const int jj = f % 8;
+    return tid % (bn / 8) * 4 + jj % 4 + jj / 4 * (bn / 2);
+  }
+  const int wn = tid / 32 / (bm / 64), q = tid % 4;
+  return 32 * wn + 8 * (f / 4 % 4) + 2 * q + f % 2;
+}
+
+// Tiled path, float: consumer thread tid's 8 x 8 outputs gain one
+// k-block's sums, a fresh partial over its mt_bk columns (products in
+// column order, fma), then added to the outputs: the register path's
+// partials of 32 columns, so a sum over 50,000 columns rounds like 1,563
+// partials, not one chain.  kt as mt_eval writes it, vs[k * (bn + 4) + c]
+// the k-block's rows of V.
 __device__ __forceinline__ void mt_product(const float* kt, const float* vs,
-                                           int j0, int cnt, int tid,
-                                           float acc[4][4]) {
-  const int ty = tid / 16, tx = tid % 16;
-  for (int jj = 0; jj < cnt; ++jj) {
-    float kv[4], vv[4];
-    load4(kt + (j0 + jj) * MT_LD + ty * 4, kv);
-    load4(vs + jj * MT_VLD + tx * 4, vv);
+                                           int bm, int bn, int tid,
+                                           float* acc) {
+  const int ld = bm + 4, vld = bn + 4;
+  const int ty = tid / (bn / 8), tx = tid % (bn / 8);
+  float part[64];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int f = 0; f < 64; ++f) part[f] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < mt_bk<float>(); ++k) {
+    float a[8], b[8];
+    load4(kt + k * ld + ty * 4, a);
+    load4(kt + k * ld + bm / 2 + ty * 4, a + 4);
+    load4(vs + k * vld + tx * 4, b);
+    load4(vs + k * vld + bn / 2 + tx * 4, b + 4);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = mv_fma(kv[a], vv[b], acc[a][b]);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[8 * i + j] = mv_fma(a[i], b[j],
+                                                           part[8 * i + j]);
   }
+#pragma unroll
+  for (int f = 0; f < 64; ++f) acc[f] = acc[f] + part[f];
 }
 
-// Tiled path, double: the same sums by the tensor cores, four columns of
-// the tile a step (mma.sync m8n8k4 in float64); the columns past cnt, up
-// to a multiple of 4, are 0 in kt and vs.  Without the card, each output's
-// four products of a step are taken by fma in order.
-__device__ __forceinline__ void mt_product(const double* kt,
-                                           const double* vs, int j0,
-                                           int cnt, int tid,
-                                           double acc[4][4]) {
-  const int w = tid / 32, lane = tid % 32;
-  const int wm = w % 4, wn = w / 4, r = lane / 4, k = lane % 4;
-  double* c = &acc[0][0];  // c[8 mt + 2 nt + e]
-  for (int jj = 0; jj < cnt; jj += 4) {
 #ifdef __CUDACC__
-    double a[2], b[4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      a[mt] = kt[(j0 + jj + k) * MT_LD + 16 * wm + 8 * mt + r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      b[nt] = vs[(jj + k) * MT_VLD + 32 * wn + 8 * nt + r];
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        asm volatile(
-            "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-            "{%0, %1}, {%2}, {%3}, {%0, %1};"
-            : "+d"(c[8 * mt + 2 * nt]), "+d"(c[8 * mt + 2 * nt + 1])
-            : "d"(a[mt]), "d"(b[nt]));
-      }
-#else
-    for (int f = 0; f < 16; ++f) {
-      const int row = mt_row<double>(tid, f / 4, f % 4);
-      const int col = mt_col<double>(tid, f / 4, f % 4);
-      for (int kk = 0; kk < 4; ++kk) {
-        c[f] = mv_fma(kt[(j0 + jj + kk) * MT_LD + row],
-                      vs[(jj + kk) * MT_VLD + col], c[f]);
-      }
-    }
-#endif
+// The float64 tensor-core step d = c + a b on one m16n8k<K> tile (K = 4
+// or 8, shapes PTX ISA 7.8 added for sm_90), the accumulators in place.
+template <int K>
+__device__ __forceinline__ void mma_f64(double* c, const double* a,
+                                        const double* b) {
+  static_assert(K == 4 || K == 8, "m16n8k4 or m16n8k8");
+  if constexpr (K == 8) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  } else {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
   }
 }
 
-// Tiled path, thread tid's outputs after one K tile: y gains the tile's
-// sums (the first tile writes them), the last tile adds the nugget's term.
-// Rows of the block from li0 (of n_rows; global row r0 + li), chunk
-// columns from c0 (of m).
+// Tiled path, double: the warp's 4 x 4 m16n8 tiles gain the K columns
+// [k, k + K) of the k-block, one step's operands at a time (with the 64
+// sums, the consumers' 208 registers hold no more).  ka and vb point at
+// the lane's first row of A and column of B.
+template <int K>
+__device__ __forceinline__ void mt_mma_step(const double* ka,
+                                            const double* vb, int ld,
+                                            int vld, int k, int q,
+                                            double* acc) {
+  constexpr int KV = K / 4;
+  double a[4][2 * KV], b[4][KV];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int u = 0; u < 2 * KV; ++u)
+      a[mi][u] = ka[(k + q + 4 * (u / 2)) * ld + 16 * mi + 8 * (u % 2)];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int u = 0; u < KV; ++u) b[ni][u] = vb[(k + q + 4 * u) * vld + 8 * ni];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      mma_f64<K>(acc + 4 * (4 * mi + ni), a[mi], b[ni]);
+}
+#endif
+
+// Tiled path, double: thread tid's 64 accumulators gain one k-block's
+// products on the tensor cores (mma.sync in float64): m16n8k8 over the
+// k-block's columns in steps of 8, m16n8k4 over its last 4.  The operands
+// come from shared memory as the fragment layouts of PTX ISA 7.8 place
+// them: lane l = 4 g + q holds A's rows g and g + 8, columns q + 4 u, and
+// B's rows q + 4 u, column g.  The accumulators run in one chain over the
+// k-blocks.  Without the card, each output's products of a k-block are
+// taken by fma in column order.
+__device__ __forceinline__ void mt_product(const double* kt, const double* vs,
+                                           int bm, int bn, int tid,
+                                           double* acc) {
+  const int ld = bm + 4, vld = bn + 4;
+  constexpr int BK = mt_bk<double>();
+  static_assert(BK % 8 == 0 || BK % 8 == 4, "steps of 8 columns, then 4");
+#ifdef __CUDACC__
+  const int w = tid / 32, g = tid % 32 / 4, q = tid % 4;
+  const double* ka = kt + 64 * (w % (bm / 64)) + g;
+  const double* vb = vs + 32 * (w / (bm / 64)) + g;
+#pragma unroll 1
+  for (int k = 0; k + 8 <= BK; k += 8) mt_mma_step<8>(ka, vb, ld, vld, k, q, acc);
+  if constexpr (BK % 8 == 4) mt_mma_step<4>(ka, vb, ld, vld, BK - 4, q, acc);
+#else
+  for (int f = 0; f < MT_SUMS; ++f) {
+    const int row = mt_row<double>(tid, f, bm, bn);
+    const int col = mt_col<double>(tid, f, bm, bn);
+    for (int k = 0; k < BK; ++k) {
+      acc[f] = mv_fma(kt[k * ld + row], vs[k * vld + col], acc[f]);
+    }
+  }
+#endif
+}
+
+// Tiled path, the epilogue: thread tid's outputs of the tile whose first
+// row is li0 (of the n_rows rows of the slab; global row r0 + li) and
+// first column c0 (of m) go to y once, with the nugget's term.
 template <typename T>
 __device__ __forceinline__ void mt_store(T* y, const T* v, T nugget,
-                                         const T acc[4][4], int tid, int li0,
-                                         int r0, int n_rows, int c0, int m,
-                                         bool first, bool last) {
+                                         const T* acc, int tid, int bm,
+                                         int bn, int li0, int c0, int r0,
+                                         int n_rows, int m) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int li = li0 + mt_row<T>(tid, a, b);
-      const int c = c0 + mt_col<T>(tid, a, b);
-      if (li >= n_rows || c >= m) continue;
-      const size_t at = (size_t)li * (size_t)m + (size_t)c;
-      T s = first ? acc[a][b] : y[at] + acc[a][b];
-      if (last) {
-        s = mv_add_nugget(s, nugget, v[(size_t)(r0 + li) * (size_t)m + c]);
-      }
-      y[at] = s;
-    }
+  for (int f = 0; f < MT_SUMS; ++f) {
+    const int li = li0 + mt_row<T>(tid, f, bm, bn);
+    const int c = c0 + mt_col<T>(tid, f, bm, bn);
+    if (li >= n_rows || c >= m) continue;
+    y[(size_t)li * (size_t)m + c] =
+        mv_add_nugget(acc[f], nugget, v[(size_t)(r0 + li) * (size_t)m + c]);
   }
 }
-
 #ifdef __CUDACC__
 
 // A thread's share of a tile: VEC neighbouring columns (16 bytes) in each of
@@ -1550,96 +1779,175 @@ kernel_matvec_sum(const T* __restrict__ partial, const T* __restrict__ v,
                         v[((size_t)r0 + li) * (size_t)m + c]);
 }
 
-// Tiled path: starts the copy of V's rows [j0, j0 + cnt) (cnt <= MT_K),
-// columns [mc, mc + MT_M), into vs (cp.async, one commit); 0 past them.
-template <typename T>
-__device__ __forceinline__ void mt_fill(const T* __restrict__ v, int m,
-                                        int j0, int cnt, int mc, T* vs) {
-  for (int q = threadIdx.x; q < MT_K * MT_M; q += MT_THREADS) {
-    const int jj = q / MT_M, col = mc + q % MT_M;
-    T* to = vs + jj * MT_VLD + q % MT_M;
-    if (jj < cnt && col < m) {
-      __pipeline_memcpy_async(to, v + (size_t)(j0 + jj) * m + col,
-                              sizeof(T));
+// Tiled path: producer thread p starts its share of the copy of k-block
+// [j0, j0 + mt_bk) (cp.async, one commit): t's slice into ts, and V's
+// rows, columns [c0, c0 + bn), into vs[k * (bn + 4) + c], 16 bytes a copy
+// when `vec` (m a multiple of 16 bytes' values, v 16-byte aligned, so a
+// column in range has its whole group in range), else one value; 0 past
+// N and past m.
+template <typename T, int NP>
+__device__ __forceinline__ void mt_fill(const T* __restrict__ t,
+                                        const T* __restrict__ v, int n,
+                                        int m, int j0, int c0, int bn,
+                                        bool vec, int p, T* ts, T* vs) {
+  const int vld = bn + 4;
+  constexpr int BK = mt_bk<T>();
+  for (int k = p; k < BK; k += NP) {
+    if (j0 + k < n) {
+      __pipeline_memcpy_async(ts + k, t + j0 + k, sizeof(T));
     } else {
-      *to = T(0);
+      ts[k] = T(0);
+    }
+  }
+  if (vec) {
+    constexpr int VEC = 16 / (int)sizeof(T);
+    const int per_row = bn / VEC;
+    for (int x = p; x < BK * per_row; x += NP) {
+      const int k = x / per_row, c = x % per_row * VEC;
+      const int j = j0 + k, col = c0 + c;
+      T* to = vs + k * vld + c;
+      if (j < n && col < m) {
+        __pipeline_memcpy_async(to, v + (size_t)j * m + col, 16);
+      } else {
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) to[u] = T(0);
+      }
+    }
+  } else {
+    for (int x = p; x < BK * bn; x += NP) {
+      const int k = x / bn, c = x % bn;
+      const int j = j0 + k, col = c0 + c;
+      T* to = vs + k * vld + c;
+      if (j < n && col < m) {
+        __pipeline_memcpy_async(to, v + (size_t)j * m + col, sizeof(T));
+      } else {
+        *to = T(0);
+      }
     }
   }
   __pipeline_commit();
 }
 
-// Tiled path (m > MV_CAP).  Block x takes rows [x * MT_ROWS, ...) of the
-// slab and walks K's column tiles: each tile evaluated once into kt, then
-// multiplied against V's chunks of MT_M columns, MT_K rows of V at a time
-// copied into vs with cp.async while the last ones are multiplied (two
-// buffers); each chunk's sums of a tile go to y and back.  A block's
-// 85 KB (float) or 102 KB (double) of shared memory let two run on an SM.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(MT_THREADS, 2)
+// Tiled path: one stage of the ring in shared memory, the K tile
+// [bk][bm + 4], V's k-block [bk][bn + 4] and t's slice [bk].
+template <typename T>
+__host__ __device__ __forceinline__ int mt_stage_values(int bm, int bn) {
+  return mt_bk<T>() * (bm + 4 + bn + 4 + 1);
+}
+
+// Named barriers of the tiled path (0 is __syncthreads'): stage s's full
+// barrier (the producers arrive, the consumers wait) and empty barrier
+// (the other way round), and the producers' own.
+#define MT_FULL(s) (1 + (s))
+#define MT_EMPTY(s) (4 + (s))
+#define MT_PRODUCED 7
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Tiled path (m > MV_CAP), output-stationary and warp-specialized.  Block
+// (x, c) owns the bm x bn tile of y at rows [x * bm, ...) of the slab and
+// columns [c * bn, ...) and walks all N columns of K in k-blocks of bk,
+// in order, through a ring of S::stages stages.  Its S::producers
+// threads (S::producer_regs registers each after setmaxnreg) copy each
+// k-block's slice of t and tile of V in (cp.async, one k-block ahead) and
+// evaluate its K tile on the FP pipe: the element's long, branchy
+// dependent chains want many warps in flight.  Its S::consumers threads
+// (S::consumer_regs registers) hold the sums and multiply each K tile in
+// (the tensor cores in double, the FP32 pipe in float) while the
+// producers evaluate the next.  y is written once, by the consumers.
+template <typename T, int MODE, int WIDE>
+__global__ void __launch_bounds__(MtShape<T, WIDE>::threads, 1)
 kernel_matvec_tiled_kernel(const T* __restrict__ t,
                            const T* __restrict__ params,
                            const T* __restrict__ v,
                            const T* __restrict__ nugget, T* __restrict__ y,
                            int n, int m, int r0, int n_rows, int n_params,
-                           const Program prog) {
-  constexpr int COLS = mt_cols<T>();
+                           bool vec, const Program prog) {
+  typedef MtShape<T, WIDE> S;
   __shared__ T par[MAX_PARAMS];
   __shared__ T cst[(MODE == MODE_ANY ? MAX_OPS : 2) * N_CONSTS];
-  __shared__ T ti[MT_ROWS];
-  __shared__ T tj[COLS];
   extern __shared__ __align__(16) unsigned char mt_smem[];
-  T* kt = reinterpret_cast<T*>(mt_smem);  // [COLS][MT_LD]
-  T* vs[2] = {kt + MT_LD * COLS,          // [MT_K][MT_VLD] each
-              kt + MT_LD * COLS + MT_K * MT_VLD};
+  constexpr int BK = S::bk;
+  const int bn = mt_bn<T>(m), bm = S::consumers * MT_SUMS / bn;
+  T* ring = reinterpret_cast<T*>(mt_smem);
+  const int stage = mt_stage_values<T>(bm, bn);
   T p0[LEAF_PARAMS], c0[N_CONSTS], p1[LEAF_PARAMS], c1[N_CONSTS];
   block_params<T, MODE>(params, n_params, prog, par, cst, p0, c0, p1, c1);
   const int tid = threadIdx.x;
-  const int li0 = blockIdx.x * MT_ROWS;
-  if (tid < MT_ROWS) {
-    const int li = li0 + tid;
-    ti[tid] = li < n_rows ? t[r0 + li] : T(0);
-  }
-  const T nug = nugget[0];
-  const int tiles = (n + COLS - 1) / COLS;
-  const int chunks = (m + MT_M - 1) / MT_M;
-  for (int k = 0; k < tiles; ++k) {
-    const int jt = k * COLS;
-    const int cnt = n - jt < COLS ? n - jt : COLS;
-    const int steps = (cnt + MT_K - 1) / MT_K;  // of V's rows, per chunk
-    __syncthreads();  // the last tile's readers are done
-    for (int j = tid; j < COLS; j += MT_THREADS) {
-      tj[j] = j < cnt ? t[jt + j] : T(0);
-    }
-    __syncthreads();
-    mt_eval<T, MODE>(prog, p0, c0, p1, c1, par, cst, ti, tj, cnt, tid, kt);
-    mt_fill<T>(v, m, jt, cnt < MT_K ? cnt : MT_K, 0, vs[0]);
-    T acc[4][4];
-    for (int q = 0; q < steps * chunks; ++q) {
-      const int mc = q / steps * MT_M, s = q % steps * MT_K;
-      if (q + 1 < steps * chunks) {  // the next step's copy runs under this
-        const int s1 = (q + 1) % steps * MT_K;
-        mt_fill<T>(v, m, jt + s1, cnt - s1 < MT_K ? cnt - s1 : MT_K,
-                   (q + 1) / steps * MT_M, vs[(q + 1) & 1]);
+  const int li0 = blockIdx.x * bm, col0 = blockIdx.y * bn;
+  const int kblocks = (n + BK - 1) / BK;
+  // a stage's K tile, V's k-block, t's slice
+#define KT(s) (ring + (s) * stage)
+#define VS(s) (KT(s) + BK * (bm + 4))
+#define TS(s) (VS(s) + BK * (bn + 4))
+  if (tid >= S::consumers) {  // the producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        S::producer_regs));
+    const int p = tid - S::consumers;
+    const int er = li0 + p % bm;  // the slab row this thread evaluates
+    const T ti = er < n_rows ? t[r0 + er] : T(0);
+    mt_fill<T, S::producers>(t, v, n, m, 0, col0, bn, vec, p, TS(0), VS(0));
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int s = kb % S::stages;
+      if (kb + 1 < kblocks) {  // the next k-block's copy runs under this one
+        const int s1 = (kb + 1) % S::stages;
+        // the consumers are done with that stage's last k-block
+        if (kb + 1 >= S::stages) bar_sync(MT_EMPTY(s1), S::threads);
+        mt_fill<T, S::producers>(t, v, n, m, (kb + 1) * BK, col0, bn, vec, p,
+                                 TS(s1), VS(s1));
         __pipeline_wait_prior(1);
       } else {
         __pipeline_wait_prior(0);
       }
-      if (s == 0) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
-      }
-      __syncthreads();  // kt and this step's vs written
-      mt_product(kt, vs[q & 1], s, cnt - s < MT_K ? cnt - s : MT_K, tid,
-                 acc);
-      if (s + MT_K >= cnt) {
-        mt_store<T>(y, v, nug, acc, tid, li0, r0, n_rows, mc, m, k == 0,
-                    k == tiles - 1);
-      }
-      __syncthreads();  // before the copy two steps on overwrites this vs
+      bar_sync(MT_PRODUCED, S::producers);  // every copy of k-block kb in
+      mt_eval<T, MODE>(prog, p0, c0, p1, c1, par, cst, ti, TS(s), n,
+                       kb * BK, bm, S::producers, p, KT(s));
+      bar_arrive(MT_FULL(s), S::threads);
     }
+    return;
   }
+  // the consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(S::consumer_regs));
+  T acc[MT_SUMS];
+#pragma unroll
+  for (int f = 0; f < MT_SUMS; ++f) acc[f] = T(0);
+  for (int kb = 0; kb < kblocks; ++kb) {
+    const int s = kb % S::stages;
+    bar_sync(MT_FULL(s), S::threads);
+    mt_product(KT(s), VS(s), bm, bn, tid, acc);
+    // the producers wait for this stage only while they have k-blocks left
+    if (kb + S::stages < kblocks) bar_arrive(MT_EMPTY(s), S::threads);
+  }
+#undef KT
+#undef VS
+#undef TS
+  mt_store<T>(y, v, nugget[0], acc, tid, bm, bn, li0, col0, r0, n_rows, m);
+}
+
+// Launches the tiled path's instance of shape WIDE.
+template <typename T, int MODE, int WIDE>
+static int run_tiled(cudaStream_t s, const T* t, const T* params,
+                     const T* v, const T* nugget, T* y, int n, int m, int r0,
+                     int n_rows, int n_params, bool vec,
+                     const Program& prog) {
+  typedef MtShape<T, WIDE> S;
+  const int bn = mt_bn<T>(m), bm = S::consumers * MT_SUMS / bn;
+  const size_t smem =
+      (size_t)S::stages * mt_stage_values<T>(bm, bn) * sizeof(T);
+  const dim3 grid((unsigned)((n_rows + bm - 1) / bm),
+                  (unsigned)((m + bn - 1) / bn));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel_matvec_tiled_kernel<T, MODE, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel_matvec_tiled_kernel<T, MODE, WIDE><<<grid, S::threads, smem, s>>>(
+      t, params, v, nugget, y, n, m, r0, n_rows, n_params, vec, prog);
+  return (int)cudaGetLastError();
 }
 
 // Checks the arguments every launch shares and fills the program; returns
@@ -1773,8 +2081,25 @@ static int launch_grad(int device, const T* t, const T* params, const T* G,
   return (int)cudaGetLastError();
 }
 
-// partial holds mv_groups(n) x n_rows x m values when m <= MV_CAP and
-// there is more than one group; it may be null otherwise.
+// The register path's instance for m columns: W = 1, or MV_CAP.
+template <typename T, int MODE>
+static void run_register(dim3 grid, cudaStream_t s, const T* t,
+                         const T* params, const T* v, const T* nugget,
+                         T* out, int n, int m, int r0, int n_rows,
+                         int n_params, int groups, const Program& prog) {
+#define RUN(W)                                                              \
+  kernel_matvec_kernel<T, MODE, W><<<grid, MV_THREADS, 0, s>>>(             \
+      t, params, v, nugget, out, n, m, r0, n_rows, n_params, groups, prog)
+  if (m == 1) {
+    RUN(1);
+  } else {
+    RUN(MV_CAP);
+  }
+#undef RUN
+}
+
+// partial holds mv_groups(n) x n_rows x m values when the register path
+// runs and there is more than one group; it may be null otherwise.
 template <typename T>
 static int launch_matvec(int device, const T* t, const T* params,
                          const T* v, const T* nugget, T* y, T* partial,
@@ -1796,23 +2121,16 @@ static int launch_matvec(int device, const T* t, const T* params,
     const dim3 grid((unsigned)((n_rows + MV_THREADS - 1) / MV_THREADS),
                     (unsigned)groups);
     T* out = groups == 1 ? y : partial;
-#define RUN(MODE, W)                                                        \
-  kernel_matvec_kernel<T, MODE, W><<<grid, MV_THREADS, 0, s>>>(             \
-      t, params, v, nugget, out, n, m, r0, n_rows, n_params, groups, prog)
-#define RUN_MODE(MODE)     \
-  if (m == 1) {            \
-    RUN(MODE, 1);          \
-  } else {                 \
-    RUN(MODE, MV_CAP);     \
-  }
-#define CASE(OP) case OP: RUN_MODE(OP); break;
+#define RUN(MODE)                                                     \
+  run_register<T, MODE>(grid, s, t, params, v, nugget, out, n, m, r0, \
+                        n_rows, n_params, groups, prog)
+#define CASE(OP) case OP: RUN(OP); break;
     switch (program_mode(prog)) {
       FOR_EACH_LEAF(CASE)
-      case MODE_PAIR: RUN_MODE(MODE_PAIR); break;
-      default: RUN_MODE(MODE_ANY); break;
+      case MODE_PAIR: RUN(MODE_PAIR); break;
+      default: RUN(MODE_ANY); break;
     }
 #undef CASE
-#undef RUN_MODE
 #undef RUN
     err = cudaGetLastError();
     if (err != cudaSuccess || groups == 1) return (int)err;
@@ -1822,25 +2140,29 @@ static int launch_matvec(int device, const T* t, const T* params,
                                             n_rows, groups);
     return (int)cudaGetLastError();
   }
-  const int smem = (int)((mt_cols<T>() * MT_LD + 2 * MT_K * MT_VLD) *
-                         sizeof(T));
-  const unsigned grid = (unsigned)((n_rows + MT_ROWS - 1) / MT_ROWS);
+  if ((m + mt_bn<T>(m) - 1) / mt_bn<T>(m) > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool vec = m % (16 / (int)sizeof(T)) == 0 &&
+                   ((uintptr_t)v) % 16 == 0;
+  // the wide shape is float's
 #define RUN(MODE)                                                           \
-  err = cudaFuncSetAttribute(kernel_matvec_tiled_kernel<T, MODE>,           \
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,   \
-                             smem);                                         \
-  if (err != cudaSuccess) return (int)err;                                  \
-  kernel_matvec_tiled_kernel<T, MODE><<<grid, MT_THREADS, smem, s>>>(       \
-      t, params, v, nugget, y, n, m, r0, n_rows, n_params, prog)
-#define CASE(OP) case OP: RUN(OP); break;
+  if constexpr (sizeof(T) == 4) {                                           \
+    if (mt_wide<T>(m)) {                                                    \
+      return run_tiled<T, MODE, 1>(s, t, params, v, nugget, y, n, m, r0,    \
+                                   n_rows, n_params, vec, prog);            \
+    }                                                                       \
+  }                                                                         \
+  return run_tiled<T, MODE, 0>(s, t, params, v, nugget, y, n, m, r0,        \
+                               n_rows, n_params, vec, prog)
+#define CASE(OP) case OP: RUN(OP);
   switch (program_mode(prog)) {
     FOR_EACH_LEAF(CASE)
-    case MODE_PAIR: RUN(MODE_PAIR); break;
-    default: RUN(MODE_ANY); break;
+    case MODE_PAIR: RUN(MODE_PAIR);
+    default: RUN(MODE_ANY);
   }
 #undef CASE
 #undef RUN
-  return (int)cudaGetLastError();
 }
 
 extern "C" int gpyrn_kernel_matvec_f64(
@@ -1848,9 +2170,9 @@ extern "C" int gpyrn_kernel_matvec_f64(
     const double* nugget, double* y, double* partial, int n, int m, int r0,
     int n_rows, int n_params, const int* ops, const int* offs,
     const int* lhs, const int* rhs, int n_ops, void* stream) {
-  return launch_matvec<double>(device, t, params, v, nugget, y, partial, n,
-                               m, r0, n_rows, n_params, ops, offs, lhs, rhs,
-                               n_ops, stream);
+  return launch_matvec<double>(device, t, params, v, nugget, y, partial, n, m,
+                          r0, n_rows, n_params, ops, offs, lhs, rhs, n_ops,
+                          stream);
 }
 
 extern "C" int gpyrn_kernel_matvec_f32(
@@ -1859,9 +2181,10 @@ extern "C" int gpyrn_kernel_matvec_f32(
     int n_rows, int n_params, const int* ops, const int* offs,
     const int* lhs, const int* rhs, int n_ops, void* stream) {
   return launch_matvec<float>(device, t, params, v, nugget, y, partial, n, m,
-                              r0, n_rows, n_params, ops, offs, lhs, rhs,
-                              n_ops, stream);
+                          r0, n_rows, n_params, ops, offs, lhs, rhs, n_ops,
+                          stream);
 }
+
 
 extern "C" int gpyrn_kernel_matrix_f64(int device, const double* t,
                                        const double* params,
@@ -1924,3 +2247,4 @@ extern "C" int gpyrn_kernel_matrix_grad_f32(
 }
 
 #endif  // __CUDACC__
+

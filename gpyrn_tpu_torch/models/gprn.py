@@ -44,6 +44,7 @@ Every function takes tensors on one device and computes in their dtype.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -61,7 +62,7 @@ from gpyrn_tpu_torch.ops.linalg import (F32_JITTER_MULT, PREDICT_NUGGET,
 
 __all__ = [
     "GPRNSpec", "spec_from_components", "pack_parameters",
-    "unpack_parameters", "Engine",
+    "unpack_parameters", "Engine", "make_engine",
 ]
 
 LOG_2PI = math.log(2 * math.pi)
@@ -1146,3 +1147,13 @@ class Engine:
             w_var * (n_var[:, None, :] + n_pred[:, None, :] ** 2)) \
             + q * jitt2[None, :]
         return mean_out, var_out, n_pred, w_pred.reshape(q * p, -1)
+
+
+@functools.lru_cache(maxsize=128)
+def make_engine(spec: GPRNSpec, core_maps: Optional[Tuple] = None,
+                lattice_axis: Optional[str] = None) -> Engine:
+    """The engine of a model structure (the JAX package's factory): an
+    :class:`Engine` holds only its spec, maps and axis, so one engine per
+    key is shared.  ``core_maps`` must be hashable (a tuple of tuples of
+    callables or None)."""
+    return Engine(spec, core_maps, lattice_axis)

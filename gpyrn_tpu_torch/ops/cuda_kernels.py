@@ -53,8 +53,10 @@ K built and multiplied by XLA) on the card; ``ops/iterative.kernel_matvec``
 and the sharded CG's row slabs launch it.  For m ≤ ``MATVEC_CAP`` columns
 a thread keeps a row's sums in registers and the columns split into
 groups fixed by N alone (:func:`matvec_groups`), summed in order by a
-second kernel; above, a K tile is evaluated once into shared memory and
-multiplied against every chunk of V.  No gradient (no caller
+second kernel; above, a block keeps a tile of y in registers
+(:func:`matvec_tile_cols` columns of V) and walks K's columns in order,
+each K tile evaluated into shared memory and multiplied in, on the FP64
+tensor cores in float64.  No gradient (no caller
 differentiates a matvec); :func:`kernel_matvec_ref` is its plain version,
 the JAX package's chunked formula.
 
@@ -99,6 +101,7 @@ __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_grad_ref", "kernel_matrix_grad_cuda",
            "kernel_matrix_slab_ref", "kernel_matrix_slab_cuda",
            "kernel_matvec_ref", "kernel_matvec_cuda", "matvec_groups",
+           "matvec_tile_cols", "matvec_instance", "MATVEC_INSTANCES",
            "kernel_matrix_stack_op", "grad_blocks", "LAUNCHES",
            "reset_launch_counts"]
 
@@ -133,16 +136,23 @@ MATVEC_CAP = 8
 MATVEC_THREADS = 128
 MATVEC_STAGE = 256
 MATVEC_TARGET_BLOCKS = 4096
+# The tiled path's widest tile of V's columns (csrc mt_bn), by dtype.
+MATVEC_TILE_COLS = {torch.float32: 256, torch.float64: 128}
 
 # Launches of each kernel, counted where the kernel is launched (B1's slab
 # entry counts as B1; the product entry, its sum pass included, once per
 # call).
 LAUNCHES = {"kernel_matrix": 0, "kernel_matrix_grad": 0, "kernel_matvec": 0}
+# The product entry's launches by kernel instance, "<dtype> <leaf | pair |
+# any> <W=1 | W=MATVEC_CAP | tiled | wide>": which instances a path runs
+# (their ptxas resources are checked against it).
+MATVEC_INSTANCES: dict = {}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    MATVEC_INSTANCES.clear()
 
 
 def tile_pairs(n: int) -> int:
@@ -632,6 +642,32 @@ def matvec_groups(n: int) -> int:
     return -(-n // cols)
 
 
+def matvec_tile_cols(m: int, dtype) -> int:
+    """The columns of V a block of the product entry's tiled path takes
+    (csrc ``mt_bn``): the least of 64, 128 and ``MATVEC_TILE_COLS`` that
+    holds m, else the largest; it depends on m alone."""
+    bn = 64
+    while bn < m and bn < MATVEC_TILE_COLS[dtype]:
+        bn *= 2
+    return bn
+
+
+def matvec_instance(structure, m: int, dtype) -> str:
+    """The product entry's kernel instance for a structure B1 takes, m
+    columns and dtype, as ``MATVEC_INSTANCES`` names it."""
+    if len(structure) == 1:
+        mode = structure[0]
+    elif all(len(s) == 1 for s in structure[1:]):
+        mode = "pair"
+    else:
+        mode = "any"
+    if m <= MATVEC_CAP:
+        width = f"W={1 if m == 1 else MATVEC_CAP}"
+    else:   # the tiled path's wide shape takes float32 above 128 columns
+        width = ("wide" if matvec_tile_cols(m, dtype) > 128 else "tiled")
+    return f"{str(dtype).replace('torch.', '')} {mode} {width}"
+
+
 _MATVEC_SYMBOLS = {torch.float64: "gpyrn_kernel_matvec_f64",
                    torch.float32: "gpyrn_kernel_matvec_f32"}
 
@@ -699,6 +735,8 @@ def kernel_matvec_cuda(structure, params, t, v, nugget=0.0, r0=0,
                            f"{err} (N={n}, m={m}, rows {r0}..{r0 + n_rows}, "
                            f"{t.dtype})")
     LAUNCHES["kernel_matvec"] += 1
+    key = matvec_instance(structure, m, t.dtype)
+    MATVEC_INSTANCES[key] = MATVEC_INSTANCES.get(key, 0) + 1
     return y
 
 

@@ -39,6 +39,7 @@ __all__ = [
     "kernel_matrix_plain",
     "kernel_diag",
     "cross_kernel_matrix", "psd_jitter",
+    "cholesky_nugget", "chol_solve", "batched_chol", "batched_chol_solve",
 ]
 
 TRAIN_NUGGET = 1e-6
@@ -198,3 +199,41 @@ def cross_kernel_matrix(structure, params, t_star, t):
         return _k.evaluate(structure, params, r=r,
                            t1=t_star[:, None], t2=t[None, :])
     return _k.evaluate(structure, params, r=r)
+
+
+def cholesky_nugget(K):
+    """Lower Cholesky factor of K (the reference's ``_cholNugget`` is a
+    plain Cholesky with a vestigial name)."""
+    return torch.linalg.cholesky(K)
+
+
+def _solve_columns(L, b):
+    """Solve (L Lᵀ) x = b for one lower factor; b (N,) or (N, k)."""
+    if b.ndim == 1:
+        return torch.cholesky_solve(b[:, None], L)[:, 0]
+    return torch.cholesky_solve(b, L)
+
+
+def chol_solve(L, b):
+    """Solve K x = b given the lower Cholesky factor L of K; b (N,) or
+    (N, k)."""
+    return _solve_columns(L, b)
+
+
+def batched_chol(K):
+    """Lower Cholesky factors of a (B, N, N) batch."""
+    return torch.linalg.cholesky(K)
+
+
+def batched_chol_solve(L, B):
+    """:func:`chol_solve` over a leading batch axis: L (B, N, N), B (B, N)
+    or (B, N, k).  Above ``models/gprn.py::BATCHED_SOLVE_MAX_N`` each
+    matrix is solved alone, as the engine's solves are (MAGMA's batched
+    solve fails there on the card; on the CPU the loop gives the same
+    values)."""
+    from gpyrn_tpu_torch.models import gprn   # gprn imports this module
+    if L.shape[-1] > gprn.BATCHED_SOLVE_MAX_N and L.shape[0] > 1:
+        return torch.stack([_solve_columns(l, b) for l, b in zip(L, B)])
+    if B.ndim == L.ndim - 1:
+        return torch.cholesky_solve(B[..., None], L)[..., 0]
+    return torch.cholesky_solve(B, L)

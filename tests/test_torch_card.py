@@ -793,10 +793,11 @@ def test_panel_refine_on_one_nccl_rank_equals_lean(cuda):
 # B1's product entry: a single leaf, a pair, a composite (the interpreter);
 # N around the tiles (32), the register path's rows (128) and steps (256),
 # 4097 with several column groups; m = 1 and 8 (the register path's two
-# instances), 33 (the tiled path)
+# instances), then the tiled path: MATVEC_CAP + 1, 64 (one whole column
+# tile), 257 (a ragged column tile, V not in 16-byte groups)
 MATVEC_CASES = [CASES[0], CASES[1], CASES[4], CASES[6]]
 MATVEC_NS = (1, 33, 300, 1000, 4097)
-MATVEC_COLS = (1, 8, 33)
+MATVEC_COLS = (1, 8, ck.MATVEC_CAP + 1, 64, 257)
 
 
 @pytest.mark.cuda
@@ -834,14 +835,36 @@ def test_product_entry_matches_twin(structure, pars, dtype, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_slab_matvec_rows_equal_kernel_matvec_rows(dtype, cuda):
+def test_product_entry_many_column_tiles(dtype, cuda):
+    """The tiled path over ten column tiles, the last ragged: the plain
+    version's values, 1e-12 (float64) or 1e-5 (float32) of max |y|; a
+    slab's rows bit for bit."""
+    N, m = 300, 9 * ck.MATVEC_TILE_COLS[dtype] + 5
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    p = torch.tensor(CASES[1][1], dtype=dtype, device=cuda)
+    t = torch.tensor(_times(N), dtype=dtype, device=cuda)
+    v = torch.tensor(np.random.default_rng(8).standard_normal((N, m)),
+                     dtype=dtype, device=cuda)
+    y = ck.kernel_matvec_cuda(("QP",), p, t, v, 0.3)
+    ref = ck.kernel_matvec_ref(("QP",), p, t, v, 0.3)
+    torch.cuda.synchronize()
+    assert float((y - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(ck.kernel_matvec_cuda(("QP",), p, t, v, 0.3, 100, 77),
+                       y[100:177])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, ck.MATVEC_CAP + 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_slab_matvec_rows_equal_kernel_matvec_rows(dtype, m, cuda):
     """One rank's rows of the sharded CG's product (``slab_matvec``) equal
-    the same rows of ``kernel_matvec``'s bit for bit."""
+    the same rows of ``kernel_matvec``'s bit for bit, on the register path
+    (m = 2) and the tiled path (m above the cap)."""
     from gpyrn_tpu_torch.parallel.iterative_sharded import slab_matvec
     N = 5000
     t = torch.tensor(_times(N), dtype=dtype, device=cuda)
     p = torch.tensor(CASES[1][1], dtype=dtype, device=cuda)
-    x = torch.tensor(np.random.default_rng(2).standard_normal((N, 2)),
+    x = torch.tensor(np.random.default_rng(2).standard_normal((N, m)),
                      dtype=dtype, device=cuda)
     whole = ti.kernel_matvec(("QP",), p, t, x)
     for r0, n_rows in ((0, 1250), (3750, 1250), (1234, 777)):

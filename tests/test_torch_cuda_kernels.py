@@ -324,6 +324,25 @@ def test_product_entry_takes_the_wrappers_arguments():
             value, name
 
 
+def test_product_instances_are_named_as_the_launcher_picks_them():
+    """``MATVEC_INSTANCES`` keys: the structure's instance (a leaf's, the
+    pair's, the interpreter's, as csrc ``program_mode``), and the register
+    path's width or the tiled path's shape, by m against ``MATVEC_CAP`` and
+    the tile's columns."""
+    cap = ck.MATVEC_CAP
+    for structure, m, dtype, key in (
+            (("QP",), 1, torch.float32, "float32 QP W=1"),
+            (("QP",), cap, torch.float64, f"float64 QP W={cap}"),
+            (("SE",), cap + 1, torch.float64, "float64 SE tiled"),
+            (("+", ("SE",), ("M32",)), 2, torch.float32,
+             f"float32 pair W={cap}"),
+            (("*", ("QP",), ("+", ("SE",), ("C",))), 1000, torch.float32,
+             "float32 any wide"),
+            (("QP",), 1000, torch.float64, "float64 QP tiled"),
+            (("QP",), 128, torch.float32, "float32 QP tiled")):
+        assert ck.matvec_instance(structure, m, dtype) == key
+
+
 def test_product_wrapper_refuses_what_it_does_not_take():
     """A CPU tensor (the CPU's path is ``kernel_matvec_ref``), a V of the
     wrong shape, rows outside K, and anything that requires grad; nothing

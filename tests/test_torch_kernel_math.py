@@ -27,14 +27,17 @@ held against the plain PyTorch versions on the CPU:
 * B1's product entry ((K + nugget·I) @ V, rows [r0, r0 + n_rows)) run
   block by block and thread by thread through the source's own steps
   (``mv_group_range``, ``mv_row_stage``, ``mv_sum_groups`` of the
-  register path; ``mt_eval``, ``mt_product``, ``mt_store`` of the tiled
-  path, float64): ragged row tiles, steps, partial sums, K tiles, rows
-  and chunks of V,
-  the column groups of N=600 summed in order, m ∈ {1, 3, MV_CAP + 1}
-  (the register path's one- and eight-column instances, the tiled path),
-  against ``kernel_matvec_ref`` to 1e-13 of max |y| in float64; a slab's
-  rows equal the whole product's bit for bit; the group count equals the
-  wrapper's ``matvec_groups``.
+  register path; ``mt_eval`` of the tiled path's producers,
+  ``mt_product`` and ``mt_store`` of its consumers, with the tile shape
+  the launcher picks): ragged row tiles, steps, partial sums, K's
+  k-blocks, column tiles, the column groups of N=600 summed in order;
+  m ∈ {1, 3} (the register path's one- and eight-column instances), then
+  the tiled path at MV_CAP + 1 and around its widest column tile (BN,
+  BN + 3, 2 BN + 5), against ``kernel_matvec_ref`` to 1e-13 of max |y| in
+  float64 and (QP, the float32 micro-tiles and partials) to 1e-5 in
+  float32; a slab's rows equal the whole product's bit for bit; the
+  group count and the column tile equal the wrapper's
+  (``matvec_groups``, ``matvec_tile_cols``).
 
 The times hold a repeated value, so r = 0 occurs off the diagonal as well
 as on it.  The kernels themselves run only on the card
@@ -240,47 +243,42 @@ static void matvec_register(const Program& p, const Setup<T>& s,
                           v[(size_t)(r0 + at / m) * m + at % m]);
 }
 
-// the tiled path: per block of MT_ROWS rows, per K tile, its threads'
-// evaluations, then per chunk of V their products and stores
+// the tiled path: per block (row tile, column tile) and k-block, t's
+// slice and V's tile, its producers' evaluations of the K tile, its
+// consumers' products; then the consumers' stores
 template <typename T, int MODE>
 static void matvec_tiled(const Program& p, const Setup<T>& s, const T* par,
                          const T* t, const T* v, T nugget, T* y, int n,
                          int m, int r0, int n_rows) {
-  const int cols = mt_cols<T>();
-  std::vector<T> kt(MT_LD * cols), vs(MT_K * MT_VLD), ti(MT_ROWS), tj(cols),
-      acc(MT_THREADS * 16);
-  const int tiles = (n + cols - 1) / cols;
-  for (int li0 = 0; li0 < n_rows; li0 += MT_ROWS) {
-    for (int r = 0; r < MT_ROWS; ++r)
-      ti[r] = li0 + r < n_rows ? t[r0 + li0 + r] : T(0);
-    for (int k = 0; k < tiles; ++k) {
-      const int jt = k * cols;
-      const int cnt = n - jt < cols ? n - jt : cols;
-      for (int q = 0; q < cols; ++q) tj[q] = q < cnt ? t[jt + q] : T(0);
-      for (int tid = 0; tid < MT_THREADS; ++tid)
-        mt_eval<T, MODE>(p, s.p0, s.c0, s.p1, s.c1, par, s.cst, ti.data(),
-                         tj.data(), cnt, tid, kt.data());
-      for (int mc = 0; mc < m; mc += MT_M) {
-        for (auto& a : acc) a = T(0);
-        for (int s0 = 0; s0 < cnt; s0 += MT_K) {
-          const int sc = cnt - s0 < MT_K ? cnt - s0 : MT_K;
-          for (int q = 0; q < MT_K * MT_M; ++q) {
-            const int jj = q / MT_M, col = mc + q % MT_M;
-            vs[jj * MT_VLD + q % MT_M] =
-                jj < sc && col < m ? v[(size_t)(jt + s0 + jj) * m + col]
-                                   : T(0);
+  const int bn = mt_bn<T>(m), bm = mt_bm<T>(m), np = mt_producers<T>(m);
+  const int nc = bm * bn / MT_SUMS, per = MT_SUMS, bk = mt_bk<T>();
+  std::vector<T> kt(bk * (bm + 4)), vs(bk * (bn + 4)), ts(bk),
+      acc(nc * per);
+  for (int li0 = 0; li0 < n_rows; li0 += bm)
+    for (int c0 = 0; c0 < m; c0 += bn) {
+      for (auto& a : acc) a = T(0);
+      for (int j0 = 0; j0 < n; j0 += bk) {
+        for (int k = 0; k < bk; ++k) {
+          ts[k] = j0 + k < n ? t[j0 + k] : T(0);
+          for (int c = 0; c < bn; ++c) {
+            const int j = j0 + k, col = c0 + c;
+            vs[k * (bn + 4) + c] =
+                j < n && col < m ? v[(size_t)j * m + col] : T(0);
           }
-          for (int tid = 0; tid < MT_THREADS; ++tid)
-            mt_product(kt.data(), vs.data(), s0, sc, tid,
-                          reinterpret_cast<T(*)[4]>(&acc[tid * 16]));
         }
-        for (int tid = 0; tid < MT_THREADS; ++tid)
-          mt_store<T>(y, v, nugget,
-                      reinterpret_cast<const T(*)[4]>(&acc[tid * 16]), tid,
-                      li0, r0, n_rows, mc, m, k == 0, k == tiles - 1);
+        for (int q = 0; q < np; ++q) {
+          const int er = li0 + q % bm;
+          const T ti = er < n_rows ? t[r0 + er] : T(0);
+          mt_eval<T, MODE>(p, s.p0, s.c0, s.p1, s.c1, par, s.cst, ti,
+                           ts.data(), n, j0, bm, np, q, kt.data());
+        }
+        for (int tid = 0; tid < nc; ++tid)
+          mt_product(kt.data(), vs.data(), bm, bn, tid, &acc[tid * per]);
       }
+      for (int tid = 0; tid < nc; ++tid)
+        mt_store<T>(y, v, nugget, &acc[tid * per], tid, bm, bn, li0, c0, r0,
+                    n_rows, m);
     }
-  }
 }
 
 template <typename T>
@@ -314,7 +312,17 @@ void matvec_f64(const double* t, const double* par, const double* v,
   matvec<double>(t, par, v, nugget, y, n, m, r0, n_rows, n_params, o, f, l,
                  r, k);
 }
+void matvec_f32(const float* t, const float* par, const float* v,
+                float nugget, float* y, int n, int m, int r0, int n_rows,
+                int n_params, const int* o, const int* f, const int* l,
+                const int* r, int k) {
+  matvec<float>(t, par, v, nugget, y, n, m, r0, n_rows, n_params, o, f, l,
+                r, k);
+}
 int mv_groups_of(int n) { return mv_groups(n); }
+int mt_bn_of(int m, int bytes) {
+  return bytes == 4 ? mt_bn<float>(m) : mt_bn<double>(m);
+}
 void slab_f64(const double* t, const double* par, double jit, double* out,
               int n, int n_pad, int r0, int n_rows, int m, const int* o,
               const int* f, const int* l, const int* r, int k) {
@@ -559,43 +567,92 @@ def test_slab_index_map(structure, pars, dtype, host_lib):
 
 # B1's product entry: N=600 has three column groups (256, 256, 88 columns:
 # a ragged step and partial sum), five 128-row tiles (the last ragged); the
-# tiled path's 64-row blocks and K tiles of 128 columns are ragged too
+# tiled path's tiles of 64 or 128 rows, its k-blocks of 36 (float64) or 48
+# (float32) columns and its column tiles are ragged too
 MATVEC_N = 600
 MATVEC_TOL = 1e-13
 MATVEC_CASES = [c for c in CASES if c[0] in
                 (("QP",), ("+", ("SE",), ("M32",)))] + [CASES[-1]]
 # (r0, n_rows): the whole product, a slab from row 0 and one that ends at N
 MATVEC_SLABS = ((0, None), (0, 150), (333, 267))
+# the tiled path's widest column tile (csrc mt_bn)
+TILE_COLS = {np.float64: ck.MATVEC_TILE_COLS[torch.float64],
+             np.float32: ck.MATVEC_TILE_COLS[torch.float32]}
+# m: the register path's one- and eight-column instances (1, 3), then the
+# tiled path at MV_CAP + 1 and around its column tiles: BN, BN + 3 (a
+# ragged second tile), 2 BN + 5
+MATVEC_COLS = [1, 3, ck.MATVEC_CAP + 1, TILE_COLS[np.float64],
+               TILE_COLS[np.float64] + 3, 2 * TILE_COLS[np.float64] + 5]
+MATVEC_F32_TOL = 1e-5
 
 
-@pytest.mark.parametrize("m", [1, 3, ck.MATVEC_CAP + 1])
-@pytest.mark.parametrize("structure,pars", MATVEC_CASES,
-                         ids=[str(c[0]) for c in MATVEC_CASES])
-def test_product_entry_matches_its_plain_version(structure, pars, m,
-                                                 host_lib):
+def _matvec_case(host_lib, structure, pars, m, npdt):
+    """The host runner's product at every slab of MATVEC_SLABS against
+    kernel_matvec_ref (max error over max |y|), and each slab's rows
+    against the whole product's, bit for bit; returns the largest
+    error."""
     rng = np.random.default_rng(MATVEC_N + m)
-    t = np.sort(rng.uniform(0, 100, MATVEC_N))
+    t = np.sort(rng.uniform(0, 100, MATVEC_N)).astype(npdt)
     t[5] = t[4]
-    v = rng.standard_normal((MATVEC_N, m))
-    par = np.asarray(pars, dtype=np.float64)
+    v = rng.standard_normal((MATVEC_N, m)).astype(npdt)
+    par = np.asarray(pars, dtype=npdt)
     code = _code(structure)
     nugget = 0.3
-    assert host_lib.mv_groups_of(MATVEC_N) == ck.matvec_groups(MATVEC_N) == 3
-    whole = None
+    fn, cnug = ((host_lib.matvec_f64, ctypes.c_double(nugget))
+                if npdt == np.float64 else
+                (host_lib.matvec_f32, ctypes.c_float(nugget)))
+    whole, worst = None, 0.0
     for r0, n_rows in MATVEC_SLABS:
         rows = MATVEC_N - r0 if n_rows is None else n_rows
-        y = np.full((rows, m), np.nan)
-        host_lib.matvec_f64(_ptr(t), _ptr(par), _ptr(v),
-                            ctypes.c_double(nugget), _ptr(y), MATVEC_N, m,
-                            r0, rows, len(pars), *code)
+        y = np.full((rows, m), np.nan, dtype=npdt)
+        fn(_ptr(t), _ptr(par), _ptr(v), cnug, _ptr(y), MATVEC_N, m, r0, rows,
+           len(pars), *code)
         ref = ck.kernel_matvec_ref(structure, torch.tensor(par),
                                    torch.tensor(t), torch.tensor(v), nugget,
                                    64, r0, n_rows).numpy()
-        assert np.max(np.abs(y - ref)) <= MATVEC_TOL * np.max(np.abs(ref))
+        worst = max(worst, float(np.max(np.abs(y - ref))
+                                 / np.max(np.abs(ref))))
         if whole is None:
             whole = y
         else:   # a row's sums do not depend on the slab
             np.testing.assert_array_equal(y, whole[r0:r0 + rows])
+    return worst
+
+
+@pytest.mark.parametrize("m", MATVEC_COLS)
+@pytest.mark.parametrize("structure,pars", MATVEC_CASES,
+                         ids=[str(c[0]) for c in MATVEC_CASES])
+def test_product_entry_matches_its_plain_version(structure, pars, m,
+                                                 host_lib):
+    assert host_lib.mv_groups_of(MATVEC_N) == ck.matvec_groups(MATVEC_N) == 3
+    assert _matvec_case(host_lib, structure, pars, m,
+                        np.float64) <= MATVEC_TOL
+
+
+@pytest.mark.parametrize("m", [1, 9, 64, 65, 128, 129, 256, 257, 1000])
+def test_tile_cols_equal_the_sources(m, host_lib):
+    """The wrapper's mirror of the tiled path's column tile (csrc mt_bn)."""
+    for dtype, size in ((torch.float64, 8), (torch.float32, 4)):
+        bn = ck.matvec_tile_cols(m, dtype)
+        assert host_lib.mt_bn_of(m, size) == bn
+        assert bn >= min(m, ck.MATVEC_TILE_COLS[dtype]) and bn % 64 == 0
+
+
+# float32: the register path's two instances, the tiled path's narrow
+# shape and its wide one (above 128 columns), whose one column tile is
+# ragged here
+F32_COLS = [1, ck.MATVEC_CAP, ck.MATVEC_CAP + 1, 200]
+
+
+@pytest.mark.parametrize("m", F32_COLS)
+def test_product_entry_in_float32(m, host_lib):
+    """The float32 steps (the tiled path's 8 x 8 micro-tiles and their
+    fresh partial every k-block) against the float32 plain version, 1e-5
+    of max |y| (the card test's limit); slabs bit for bit."""
+    assert ck.matvec_tile_cols(F32_COLS[-1], torch.float32) > 128
+    structure, pars = MATVEC_CASES[0]
+    assert _matvec_case(host_lib, structure, pars, m,
+                        np.float32) <= MATVEC_F32_TOL
 
 
 @pytest.mark.parametrize("n", [1, 31, 127, 128, 129, 600, 4096, 20000,
