@@ -191,15 +191,26 @@ ends non-zero:
     SE weight against the plain version and B1's full-matrix rows; the
     slab entry's time on a 256-row slab at N=4096 and 20,000 and on the
     whole slab at 20,000, against its plain version and its bound.
+35. the worked examples, in three fresh processes side by side
+    (``chip_smoke.py --examples 5``, ``--examples 6,7,8,1``,
+    ``--examples 2,3,4``; ``--examples`` alone runs all eight in one):
+    ``examples/torch_example_1.py`` ... ``_8.py``, each imported by
+    module name and run once through ``main("cuda")`` in a temporary
+    working directory, at the examples' own sizes; what each
+    returns against the JAX examples' values cached in
+    ``tests/torch_examples_reference.json`` (``example_checks``, the
+    bars of ``tests/test_torch_examples.py``), its launches (B1 in every
+    example, B1's product entry in examples 5 and 6) and its wall.
 
 The launch counts are set to 0 before each path (phases 3–5, phases
 6–7, phases 11–12, phases 13–15, phases 17–20, phases 21–24, phases
 25–28, phases 29–30; phase 31's are counted in its serving process,
 phase 33's and 34's in their ranks, started by a fresh process,
-``chip_smoke.py --parallel``; phase 34's distributed CG alone) and read
-after it.  The last three lines are the kernels' JSON record (B1, B1′ and
-B1's product entry ``kernel_matvec``), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+``chip_smoke.py --parallel``; phase 34's distributed CG alone; phase
+35's before each example, in its process) and read after it.  The last
+three lines are the kernels' JSON record (B1, B1′ and B1's product entry
+``kernel_matvec``; each with its launches per path and per example), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -580,6 +591,48 @@ PANEL_FIT_RTOL = 1e-8
 PANEL_RTOL = {"elbo": 1e-8, "state": 1e-7}
 PANEL_WIDE_RTOL = {"elbo": 1e-9, "state": 1e-8}
 CG_MESH_TOL = (1e-5, 1e-8)
+
+# phase 35: the worked examples (examples/torch_example_1.py ... _8.py),
+# each one main("cuda") in a fresh process (chip_smoke.py --examples),
+# against the JAX examples' values cached by tests/test_torch_examples.py
+EXAMPLES_ARG = "--examples"
+EXAMPLES_DIR = os.path.join(HERE, "examples")
+EXAMPLES_REFERENCE = os.path.join(HERE, "tests",
+                                  "torch_examples_reference.json")
+EXAMPLE_NUMBERS = tuple(range(1, 9))
+# the examples are launch-bound at their sizes (N <= 100: the host's
+# launches, not the card, set their walls): on an NVIDIA H100 80GB HBM3
+# at 700 W, side by side in these groups, example 5's NUTS took 201 s,
+# examples 6, 7, 8, 1 168 s and 2, 3, 4 126 s (chip_smoke.py --examples;
+# the eight walls sum to 495 s), so phase 35 runs them in three processes
+# side by side
+EXAMPLE_GROUPS = ((5,), (6, 7, 8, 1), (2, 3, 4))
+# the examples that run B1's product entry (predict_iterative, build_love)
+EXAMPLES_WITH_MATVEC = (5, 6)
+# the bars of example_checks, each against the JAX example's value:
+# float64 fits from the heuristic state relative 1e-9 (ELBO_RTOL) and
+# their predictives 1e-9 of the largest value; optimizer trajectories of
+# 60-120 steps (adam, Nelder-Mead) relative 1e-7 (THETA_RTOL, parameters
+# entry by entry, an entry near 0 against the largest); a fit from a
+# float32 bulk with three float64 polish sweeps MIXED_POLISH3_RTOL, and
+# with the polish to its fixed point (refine_tol 1e-9) relative 1e-7,
+# tests/test_torch_mixed.py's bars; the matrix-free predictives
+# EXAMPLE_ITERATIVE_TOL; the port's own NUTS chains:
+# finite, of the JAX chain's shape, acceptance in (0, 1] and each
+# posterior mean within NUTS_SIGMAS posterior standard deviations of the
+# JAX chain's
+EXAMPLE_PREDICT_TOL = 1e-9
+EXAMPLE_CONVERGE_RTOL = 1e-7
+NUTS_SIGMAS = 4.0
+# the matrix-free predictives (CG solves at tol 1e-9, LOVE's Lanczos
+# cache with its CG solve at 1e-8) agree with another runtime's only to
+# the solves' accuracy, not to rounding (an H100 against the JAX
+# package: CG std 1.0e-8 of the largest value): their values, and their
+# gaps to the dense predictive, are held to this share of the largest
+# predictive value
+EXAMPLE_ITERATIVE_TOL = 1e-7
+# the example's own bar for the served mean against the in-process one
+SERVE_DEV_TOL = 1e-10
 
 
 def solar_problem(pkg, **kw):
@@ -4474,17 +4527,207 @@ def parallel_main(torch, pkg):
                  "times": wide["slab_times"]}}), flush=True)
 
 
+def _theta_rel(x, ref):
+    """max over entries of |x - ref| / max(|ref|, 1e-3·max |ref|): the
+    parameters relative entry by entry, an entry near 0 against the
+    largest."""
+    x, ref = np.asarray(x, dtype=float), np.asarray(ref, dtype=float)
+    scale = np.maximum(np.abs(ref), 1e-3 * np.max(np.abs(ref)))
+    return float(np.max(np.abs(x - ref) / scale))
+
+
+def _bar(what, err, limit):
+    return (what, bool(err <= limit), f"{err:.3e} (limit {limit:.0e})")
+
+
+def _same(what, got, want):
+    got, want = np.asarray(got).tolist(), np.asarray(want).tolist()
+    return (what, got == want, f"{got} (jax {want})")
+
+
+def _nuts_checks(got, ref):
+    """The port's own chain (its draws are not the JAX example's): finite,
+    the JAX chain's shape, acceptance in (0, 1], each posterior mean
+    within NUTS_SIGMAS of the JAX chain's posterior standard deviations."""
+    mean, std = np.asarray(got["chain_mean"]), np.asarray(got["chain_std"])
+    dist = np.abs(mean - np.asarray(ref["chain_mean"])) \
+        / np.asarray(ref["chain_std"])
+    return [
+        ("chain finite", bool(np.all(np.isfinite(mean))
+                              and np.all(np.isfinite(std))),
+         f"mean {mean}, std {std}"),
+        _same("chain shape", list(got["chain_shape"]), ref["chain_shape"]),
+        ("acceptance in (0, 1]", 0.0 < got["acceptance"] <= 1.0,
+         f"{got['acceptance']:.3f} (jax {ref['acceptance']:.3f})"),
+        ("posterior means within the JAX chain's", bool(np.all(
+            dist <= NUTS_SIGMAS)),
+         f"{dist.max():.2f} sd (limit {NUTS_SIGMAS})")]
+
+
+def _gap_check(what, gap, values):
+    return _bar(what, gap / np.max(np.abs(values)), EXAMPLE_ITERATIVE_TOL)
+
+
+def example_checks(n, got, ref):
+    """(what, ok, detail) of the port's example ``n`` (the dict its
+    ``main`` returns) against the JAX example's values ``ref`` (a section
+    of ``tests/torch_examples_reference.json``), at the bars above the
+    EXAMPLE_* constants; ``tests/test_torch_examples.py`` holds the
+    examples on the CPU to the same checks."""
+    def rel(key, limit=ELBO_RTOL):
+        return _bar(key, _rel(got[key], ref[key]), limit)
+
+    def pred(key):
+        return _bar(key, _max_rel(got[key], ref[key]), EXAMPLE_PREDICT_TOL)
+
+    def theta(key):
+        return _bar(key, _theta_rel(got[key], ref[key]), THETA_RTOL)
+
+    def iterative(key):
+        return _bar(key, _max_rel(got[key], ref[key]), EXAMPLE_ITERATIVE_TOL)
+
+    if n == 1:
+        return [rel("elbo_short"), rel("elbo_long"),
+                _bar("tstar", _max_rel(got["tstar"], ref["tstar"]), 0.0),
+                pred("mean"), pred("std")]
+    if n == 2:
+        return [rel("initial_elbo"), rel("elbo", THETA_RTOL),
+                rel("fun", THETA_RTOL), theta("theta")]
+    if n == 3:
+        return [rel("initial_elbo"),
+                _same("restarts", len(got["restart_elbos"]),
+                      len(ref["restart_elbos"])),
+                _same("winner", got["winner"], ref["winner"]),
+                rel("elbo", THETA_RTOL),
+                _bar("restart_elbos", _x_rel(got["restart_elbos"],
+                                             ref["restart_elbos"]),
+                     THETA_RTOL), theta("theta")]
+    if n == 4:
+        return [_same("converged", got["converged"], ref["converged"]),
+                _same("iteration", got["iteration"], ref["iteration"]),
+                _same("names", [str(s) for s in got["names"]],
+                      ref["names"]),
+                rel("acceptance"),
+                _bar("chain_mean", _x_rel(got["chain_mean"],
+                                          ref["chain_mean"]), ELBO_RTOL),
+                _bar("chain_std", _x_rel(got["chain_std"],
+                                         ref["chain_std"]), ELBO_RTOL),
+                rel("logz")]
+    if n == 5:
+        return [rel("elbo_mixed", MIXED_POLISH3_RTOL), rel("elbo_plain"),
+                *_nuts_checks(got, ref),
+                _gap_check("CG vs dense gap", got["gap"], ref["mean_cg"]),
+                iterative("mean_cg"), iterative("std_cg")]
+    if n == 6:
+        return [rel("elbo0"), rel("elbo", THETA_RTOL), rel("fun", THETA_RTOL),
+                theta("x"), _same("nit", got["nit"], ref["nit"]),
+                _same("nfev", got["nfev"], ref["nfev"]),
+                _gap_check("LOVE vs dense mean gap", got["love_dmean"],
+                           ref["mean_love"]),
+                _gap_check("LOVE vs dense std gap", got["love_dstd"],
+                           ref["std_love"]),
+                iterative("mean_love"), iterative("std_love"),
+                *_nuts_checks(got, ref)]
+    if n == 7:
+        return [rel("e_ref"), rel("e_3sweep", MIXED_POLISH3_RTOL),
+                rel("e_conv", EXAMPLE_CONVERGE_RTOL),
+                _same("winner", got["winner"], ref["winner"]),
+                _bar("restart_elbos", _x_rel(got["restart_elbos"],
+                                             ref["restart_elbos"]),
+                     THETA_RTOL),
+                rel("elbo", THETA_RTOL), theta("theta"),
+                _same("nit", got["nit"], ref["nit"])]
+    if n == 8:
+        return [rel("elbo"), _same("iterations", got["iterations"],
+                                   ref["iterations"]),
+                pred("served_25"), pred("served_400"), pred("mean_serve"),
+                ("served vs in-process", got["dev"] < SERVE_DEV_TOL,
+                 f"{got['dev']:.3e} (limit {SERVE_DEV_TOL:.0e})")]
+    raise ValueError(f"no example {n}")
+
+
+def examples_main(torch, ck, numbers=EXAMPLE_NUMBERS):
+    """Phase 35 in this process: worked examples ``numbers``, each one's
+    ``main("cuda")``, imported by module name, in a temporary working
+    directory, its values against the cached JAX examples', its launches
+    (set to 0 before it and read after it) and its wall.  Example 3's
+    restarts run in the rank ``spawn`` starts, whose launches stay in that
+    process: its count is the parent's.  The last line is the JSON record
+    the parent reads."""
+    import importlib
+    import tempfile
+    os.environ.setdefault("MPLBACKEND", "Agg")
+    sys.path.insert(0, EXAMPLES_DIR)
+    with open(EXAMPLES_REFERENCE) as f:
+        reference = json.load(f)
+    from gpyrn_tpu_torch.ops import _build
+    _build.build("kernel_matrix")
+    walls, by_example, instances = {}, {}, []
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    for n in numbers:
+        module = importlib.import_module(f"torch_example_{n}")
+        ck.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                got, wall = _timed(torch, lambda: module.main("cuda"))
+            finally:
+                os.chdir(cwd)
+        launches = dict(ck.LAUNCHES)
+        walls[n], by_example[n] = wall, launches
+        instances.append(dict(ck.MATVEC_INSTANCES))
+        print(f"example {n}: {wall:.2f} s, launches {launches}",
+              flush=True)
+        _check(f"example {n}", example_checks(n, got, reference[str(n)]))
+        if launches["kernel_matrix"] == 0:
+            raise AssertionError(f"example {n} never launched "
+                                 "kernel_matrix")
+        if n in EXAMPLES_WITH_MATVEC and launches["kernel_matvec"] == 0:
+            raise AssertionError(f"example {n} never launched "
+                                 "kernel_matvec")
+    total = {k: sum(c[k] for c in by_example.values())
+             for k in by_example[numbers[0]]}
+    seconds = time.perf_counter() - t_phase
+    print(f"examples {list(numbers)} launches: {total}; this process took "
+          f"{seconds:.1f} s (the examples {sum(walls.values()):.1f} s)",
+          flush=True)
+    print(json.dumps({"launches": total, "by_example": by_example,
+                      "walls": walls, "seconds": seconds,
+                      "instances": _merged(instances)}), flush=True)
+
+
 def _child(arg):
     """The output lines of this script run with ``arg`` in a fresh
     process; its failure fails the run."""
-    child = subprocess.run([sys.executable, os.path.abspath(__file__), arg],
-                           capture_output=True, text=True)
-    sys.stderr.write(child.stderr)
-    if child.returncode != 0:
-        sys.stdout.write(child.stdout)
-        raise AssertionError(f"the child process ({arg}) failed with "
-                             f"exit code {child.returncode}")
-    return child.stdout.strip().splitlines()
+    return _children([[arg]])[0]
+
+
+def _children(args):
+    """The output lines of this script run with each argument list of
+    ``args``, the processes side by side; a failure of any fails the
+    run."""
+    import tempfile
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+             for _ in args]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               *a], stdout=out, stderr=err, text=True)
+             for a, (out, err) in zip(args, files)]
+    outs = []
+    for a, p, (out, err) in zip(args, procs, files):
+        p.wait()
+        out.seek(0)
+        err.seek(0)
+        sys.stderr.write(err.read())
+        text = out.read()
+        out.close()
+        err.close()
+        if p.returncode != 0:
+            sys.stdout.write(text)
+            raise AssertionError(f"the child process ({' '.join(a)}) "
+                                 f"failed with exit code {p.returncode}")
+        outs.append(text.strip().splitlines())
+    return outs
 
 
 def main():
@@ -4514,6 +4757,11 @@ def main():
         return
     if sys.argv[1:] == [PARALLEL_ARG]:
         parallel_main(torch, pkg)
+        return
+    if sys.argv[1:2] == [EXAMPLES_ARG]:
+        numbers = (tuple(int(n) for n in sys.argv[2].split(","))
+                   if len(sys.argv) > 2 else EXAMPLE_NUMBERS)
+        examples_main(torch, ck, numbers)
         return
 
     print("== phase 1: environment", flush=True)
@@ -4697,6 +4945,30 @@ def main():
         raise AssertionError("the parallel path never launched "
                              "kernel_matrix")
 
+    # the worked examples, in processes of their own: the counts set to 0
+    # before each example and read after it
+    print(f"== phase 35: the worked examples on the card, in "
+          f"{len(EXAMPLE_GROUPS)} fresh processes side by side "
+          f"{list(EXAMPLE_GROUPS)}", flush=True)
+    t_examples = time.perf_counter()
+    groups = _children([[EXAMPLES_ARG, ",".join(map(str, g))]
+                        for g in EXAMPLE_GROUPS])
+    records = []
+    for lines in groups:
+        print("\n".join(lines[:-1]), flush=True)
+        records.append(json.loads(lines[-1]))
+    examples = {
+        "by_example": dict(sorted(
+            (n, c) for r in records for n, c in r["by_example"].items())),
+        "walls": dict(sorted(
+            (n, w) for r in records for n, w in r["walls"].items())),
+        "instances": _merged([r["instances"] for r in records])}
+    examples_launches = {k: sum(r["launches"][k] for r in records)
+                         for k in records[0]["launches"]}
+    print(f"examples launches: {examples_launches}; walls (s): "
+          f"{examples['walls']}; phase 35 took "
+          f"{time.perf_counter() - t_examples:.1f} s", flush=True)
+
     kernels = []
     for kname, rec in (("kernel_matrix", record),
                        ("kernel_matrix_grad", grad_record)):
@@ -4708,7 +4980,8 @@ def main():
                    "large": large_launches[kname],
                    "solar": solar_launches[kname],
                    "serving": serving_launches[kname],
-                   "parallel": parallel_launches[kname]}
+                   "parallel": parallel_launches[kname],
+                   "examples": examples_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "gpyrn_tpu_torch/csrc/kernel_matrix.cu",
@@ -4732,9 +5005,11 @@ def main():
                "large": large_launches["kernel_matvec"],
                "solar": solar_launches["kernel_matvec"],
                "serving": serving_launches["kernel_matvec"],
-               "parallel": parallel_launches["kernel_matvec"]}
+               "parallel": parallel_launches["kernel_matvec"],
+               "examples": examples_launches["kernel_matvec"]}
     # the product entry's instances the paths launched: none may spill
-    instances = _merged([large["instances"], parallel["instances"]])
+    instances = _merged([large["instances"], parallel["instances"],
+                         examples["instances"]])
     launched_spills = sorted(k for k in instances if k in spilled)
     print(f"B1's product entry, instances the paths launched: {instances}; "
           f"of them spill: {launched_spills}; instances that spill and no "
@@ -4759,6 +5034,10 @@ def main():
     if min(by_path["large"], by_path["parallel"]) == 0:
         raise AssertionError(f"the matrix-free paths never launched "
                              f"kernel_matvec: {by_path}")
+    # the worked examples' launches, example by example
+    for rec in kernels:
+        rec["launches_by_example"] = {
+            n: c[rec["name"]] for n, c in examples["by_example"].items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
