@@ -1,0 +1,6 @@
+"""The device's idle share of the traced slice, lean fit."""
+from h100_bench import readings
+
+
+def read(run):
+    return readings.idle(run)
