@@ -59,6 +59,7 @@ from gpyrn_tpu_torch.ops.linalg import (F32_JITTER_MULT, PREDICT_NUGGET,
                                         kernel_matrix_plain,
                                         kernel_matrix_rows,
                                         kernel_matrix_stack)
+from gpyrn_tpu_torch.utils import profiling as _profiling
 
 __all__ = [
     "GPRNSpec", "spec_from_components", "pack_parameters",
@@ -66,6 +67,10 @@ __all__ = [
 ]
 
 LOG_2PI = math.log(2 * math.pi)
+
+# Engine.elbo_fit_batch's counters: batched sweeps, and calls that wait for
+# the device (``utils/profiling.py``'s ``gprn.batch.*``)
+BATCH_COUNTS = _profiling.counters("gprn.batch", ("sweeps", "host_reads"))
 
 
 class GPRNSpec(NamedTuple):
@@ -613,9 +618,25 @@ class Engine:
         stop, the constants and states of the others are gathered.  One
         boolean per row comes to the host per sweep (from sweep 4 on).
         Returns ``(elbo (W,), mu (W, d), var (W, d), n_iter (W,),
-        converged (W,))``."""
+        converged (W,))``.
+
+        Recorded (``utils/profiling.py``): the span ``gprn.fit_batch``
+        around the call, with what the counters rose by, and inside it
+        ``gprn.prepare``, each sweep's ``gprn.sweep`` (its launches) and
+        ``gprn.stop`` (the ELBO history and the stop test's read), and
+        ``gprn.gather`` (the rows written out and the running rows
+        gathered); the counters ``gprn.batch.sweeps`` and
+        ``gprn.batch.host_reads``, each call of the loop's own that waits
+        for the device: a copy to or from the host, and a boolean-mask
+        index (its ``nonzero``).  The syncs of the libraries inside a
+        sweep are not counted."""
+        with _profiling.span("gprn.fit_batch", counts=True):
+            return self._fit_batch(theta, t, y, yerr2, mu0, var0, max_iter)
+
+    def _fit_batch(self, theta, t, y, yerr2, mu0, var0, max_iter):
         W = theta.shape[0]
-        prepared = list(self._prepare(theta, t, y, yerr2))
+        with _profiling.span("gprn.prepare"):
+            prepared = list(self._prepare(theta, t, y, yerr2))
         muF, muW = self._u_split(self._rows(theta, mu0))
         varF, varW = self._u_split(self._rows(theta, var0))
         state = [muF, varF, muW, varW]
@@ -629,39 +650,53 @@ class Engine:
         rows = np.arange(W)                 # the original index of each row
         elbo, it = None, 0
 
+        def put(a):
+            """A host array on the device: a host read."""
+            BATCH_COUNTS["host_reads"] += 1
+            return torch.as_tensor(a, device=device)
+
+        def take(x, mask):
+            """x[mask], a boolean mask on the device: a host read."""
+            BATCH_COUNTS["host_reads"] += 1
+            return x[mask]
+
         def finish(sel):
             """Write the rows ``sel`` (a mask over the running rows) out."""
-            where = torch.as_tensor(rows[sel], device=device)
-            mask = torch.as_tensor(sel, device=device)
-            elbo_out[where] = elbo[mask]
-            mu_out[where] = self._u_join(state[0][mask], state[2][mask])
-            var_out[where] = self._u_join(state[1][mask], state[3][mask])
+            where, mask = put(rows[sel]), put(sel)
+            elbo_out[where] = take(elbo, mask)
+            mu_out[where] = self._u_join(take(state[0], mask),
+                                         take(state[2], mask))
+            var_out[where] = self._u_join(take(state[1], mask),
+                                          take(state[3], mask))
             n_iter[rows[sel]] = it
 
         while rows.size and it < max_iter:
-            elbo, *state = self._sweep(*prepared, *state)
-            hist = torch.cat([hist[:, 1:], elbo[:, None]], dim=1)
+            with _profiling.span("gprn.sweep"):
+                elbo, *state = self._sweep(*prepared, *state)
+            BATCH_COUNTS["sweeps"] += 1
             it += 1
-            if it <= 3:
+            with _profiling.span("gprn.stop"):
+                hist = torch.cat([hist[:, 1:], elbo[:, None]], dim=1)
+                if it > 3:
+                    done = _rel_std3_stop(hist).cpu().numpy()
+                    BATCH_COUNTS["host_reads"] += 1
+            if it <= 3 or not done.any():
                 continue
-            done = _rel_std3_stop(hist).cpu().numpy()
-            if not done.any():
-                continue
-            finish(done)
-            converged[rows[done]] = True
-            keep = torch.as_tensor(~done, device=device)
-            rows = rows[~done]
-            # the data (prepared[5]) and a missing Linv_nodes have no row
-            # axis
-            prepared = [x if i == 5 or x is None else x[keep]
-                        for i, x in enumerate(prepared)]
-            state = [s[keep] for s in state]
-            hist, elbo = hist[keep], elbo[keep]
-        if rows.size and elbo is not None:
-            finish(np.ones(rows.size, dtype=bool))
-        return (elbo_out, mu_out, var_out,
-                torch.as_tensor(n_iter, device=device),
-                torch.as_tensor(converged, device=device))
+            with _profiling.span("gprn.gather"):
+                finish(done)
+                converged[rows[done]] = True
+                keep = put(~done)
+                rows = rows[~done]
+                # the data (prepared[5]) and a missing Linv_nodes have no
+                # row axis
+                prepared = [x if i == 5 or x is None else take(x, keep)
+                            for i, x in enumerate(prepared)]
+                state = [take(s, keep) for s in state]
+                hist, elbo = take(hist, keep), take(elbo, keep)
+        with _profiling.span("gprn.gather"):
+            if rows.size and elbo is not None:
+                finish(np.ones(rows.size, dtype=bool))
+            return elbo_out, mu_out, var_out, put(n_iter), put(converged)
 
     def elbo_fixed_batch(self, theta, t, y, yerr2, mu0, var0, n_sweeps):
         """:meth:`elbo_fixed` of every row of ``theta`` (W, n_parameters),

@@ -93,6 +93,7 @@ import torch
 
 from gpyrn_tpu_torch.ops import _build
 from gpyrn_tpu_torch.ops import kernels as _k
+from gpyrn_tpu_torch.utils import profiling as _profiling
 
 __all__ = ["OPCODES", "Program", "cuda_supported", "encode_program",
            "kernel_matrix_ref", "kernel_matrix_cuda",
@@ -141,8 +142,9 @@ MATVEC_TILE_COLS = {torch.float32: 256, torch.float64: 128}
 
 # Launches of each kernel, counted where the kernel is launched (B1's slab
 # entry counts as B1; the product entry, its sum pass included, once per
-# call).
-LAUNCHES = {"kernel_matrix": 0, "kernel_matrix_grad": 0, "kernel_matvec": 0}
+# call): the counters ``launches.<kernel>`` of ``utils/profiling.py``.
+LAUNCHES = _profiling.counters(
+    "launches", ("kernel_matrix", "kernel_matrix_grad", "kernel_matvec"))
 # The product entry's launches by kernel instance, "<dtype> <leaf | pair |
 # any> <W=1 | W=MATVEC_CAP | tiled | wide>": which instances a path runs
 # (their ptxas resources are checked against it).

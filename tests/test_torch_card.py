@@ -4,7 +4,8 @@ a non-symmetric adjoint, the same bits from run to run), the stacked
 function and its backward, and the main path, the gradient path, the
 converged-state paths and the batched paths (the θ-batched fit,
 ``optimize_device``, the samplers, ``batch_elbo``) on the card against the
-same on the CPU.
+same on the CPU; the θ-batched fit's count of host reads against the syncs
+torch sees.
 
 Every test here needs a CUDA device and skips without one (the kernel has
 no CPU mode).  The file imports no jax, so the card's machine runs it
@@ -523,6 +524,41 @@ def test_batched_fit_on_card_matches_cpu(cuda):
     torch.testing.assert_close(e, e_c, rtol=1e-9, atol=0)
     for a, b in ((mu, mu_c), (var, var_c)):
         assert float((a - b).abs().max() / (1 + b.abs().max())) <= 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [_headline_small, _model])
+def test_batched_fit_host_reads_are_its_syncs(make, cuda):
+    """``elbo_fit_batch`` of twelve rows (q = 1 and q = 2) under
+    ``set_sync_debug_mode("warn")``: torch warns once for each call that
+    synchronizes, and ``gprn.batch.host_reads`` rose by as many, so the
+    counter's call sites are all the loop's syncs.  A first fit runs under
+    the mode uncounted, so that one-off syncs of the mode's first use are
+    not the fit's."""
+    import warnings
+
+    from gpyrn_tpu_torch.utils import profiling
+    g = make(cuda)
+    eng, data = g.engine, g._data()
+    thetas = g._tensor(_rows(g, rows=12, seed=5))
+    mu0, var0 = eng.init_mu_var(thetas, data[1])
+    torch.cuda.synchronize()
+    got = []
+    try:
+        torch.cuda.set_sync_debug_mode("warn")
+        for _ in range(2):
+            before = profiling.counts()["gprn.batch.host_reads"]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = eng.elbo_fit_batch(thetas, *data, mu0, var0, 200)
+            syncs = [w for w in caught if "synchroniz" in str(w.message)]
+            got.append((profiling.counts()["gprn.batch.host_reads"]
+                        - before, len(syncs)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reads, syncs = got[1]
+    assert len(set(out[3].tolist())) >= 2      # rows stopped apart
+    assert reads == syncs > 0
 
 
 @pytest.mark.cuda
