@@ -1979,9 +1979,9 @@ def phase_mixed_wide(torch, pkg, ck, lin):
         args = (theta, g._tensor(g.time), data[1], data[2])
         if dtype is not None:
             args = tuple(a.to(dtype) for a in args)
-        L_all = eng._prepare(*args)[2]
-        bad[name] = int((~torch.isfinite(L_all).flatten(1).all(1)).sum())
-        del L_all
+        Linv_all = eng._prepare(*args)[2]      # NaN where a factor failed
+        bad[name] = int((~torch.isfinite(Linv_all).flatten(1).all(1)).sum())
+        del Linv_all
     g64 = headline_problem(pkg, N=N, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     (e64, _, _, it64), wall64 = _timed(torch, g64.ELBOcalc)

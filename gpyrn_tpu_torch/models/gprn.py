@@ -71,6 +71,11 @@ LOG_2PI = math.log(2 * math.pi)
 # Engine.elbo_fit_batch's counters: batched sweeps, and calls that wait for
 # the device (``utils/profiling.py``'s ``gprn.batch.*``)
 BATCH_COUNTS = _profiling.counters("gprn.batch", ("sweeps", "host_reads"))
+# the dense sweep's applications of a factor's inverse (node update, weight
+# update, prior term, each node pair's cross trace; an updates-only sweep
+# has the first two): products with a triangular inverse, never a library
+# solve
+SWEEP_COUNTS = _profiling.counters("gprn.sweep", ("inverse_solves",))
 
 
 class GPRNSpec(NamedTuple):
@@ -181,6 +186,55 @@ def _cho_solve(L, b):
     return _cho_solve_mat(L, b.unsqueeze(-1)).squeeze(-1)
 
 
+def _tri_apply(X, b):
+    """X b for a batch of matrices (..., N, N) and vectors (..., N): one
+    batched product."""
+    return torch.matmul(X, b.unsqueeze(-1)).squeeze(-1)
+
+
+def _inv_apply(X, b):
+    """A⁻¹ b = Xᵀ(X b) for A = L Lᵀ, given X = L⁻¹: two batched
+    products."""
+    return torch.matmul(X.transpose(-2, -1),
+                        _tri_apply(X, b).unsqueeze(-1)).squeeze(-1)
+
+
+def _refined(K, d, X, b):
+    """A⁻¹ b for A = K + diag(d) given X = L⁻¹: :func:`_inv_apply` and one
+    step of iterative refinement, x += Xᵀ X (b − A x).  An explicit
+    inverse applied alone rounds like ‖A⁻¹‖‖b‖ and not like ‖A⁻¹ b‖ (at
+    the fixed point of an ill-conditioned fit its sweep moved the state by
+    1.3 times the triangular solves' 1e-12); the step brings it back to
+    them, for a product with K and two with X."""
+    x = _inv_apply(X, b)
+    return x + _inv_apply(
+        X, b - torch.einsum("...ij,...j->...i", K, x) - d * x)
+
+
+class _Solve(torch.autograd.Function):
+    """x = A⁻¹ b for A = K + diag(d), a batch of SPD matrices (..., N, N)
+    and vectors (..., N), by :func:`_refined` with X = L⁻¹ of A's factor,
+    and differentiated as the solve it is: ḡ = A⁻¹ g (:func:`_refined`
+    again) for b, −ḡ xᵀ for K, −ḡ ⊙ x for d, nothing for X.  So the
+    gradient reaches K and d without passing back through X's strip
+    inversion and the factorization (through them, the implicit
+    gradient's adjoint solve stalled above its 1e-10 at q = 1)."""
+
+    @staticmethod
+    def forward(ctx, K, d, X, b):
+        x = _refined(K, d, X, b)
+        ctx.save_for_backward(K, d, X, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        K, d, X, x = ctx.saved_tensors
+        g_b = _refined(K, d, X, g)
+        g_K = (-g_b.unsqueeze(-1) * x.unsqueeze(-2)
+               if ctx.needs_input_grad[0] else None)
+        return g_K, -g_b * x, None, g_b
+
+
 def _on_stack(fn, A):
     """``fn`` of a (B, N, N) stack applied to A of shape (..., N, N): the
     leading dimensions are flattened into one stack and restored on every
@@ -207,10 +261,10 @@ class Engine:
 
     ``lattice_axis`` optionally names a mesh axis over which the (q × p)
     weight lattice is split: the dense paths' weight kernel matrices and
-    their factorizations (the prior Cholesky of ``_prepare``, the A = K +
-    D⁻¹ factorizations of every sweep) are built by each rank of the axis
-    for its contiguous share of the weight GPs and gathered, under autograd
-    too.  Such an engine is called collectively by the ranks of the mesh
+    their factorizations (the prior Cholesky of ``_prepare`` and its
+    inverse, the A = K + D⁻¹ factorizations and their inverses of every
+    sweep) are built by each rank of the axis for its contiguous share of
+    the weight GPs and gathered, under autograd too.  Such an engine is called collectively by the ranks of the mesh
     set by :func:`gpyrn_tpu_torch.parallel.use_mesh` (the JAX package's
     ``jax.set_mesh``).  A lattice that does not divide over the axis stays
     whole on every rank."""
@@ -375,11 +429,12 @@ class Engine:
         return torch.minimum(torch.maximum(d_sig, tiny),
                              torch.minimum(Kdiag, d_add))
 
-    def _sigma_apply(self, L, K, rhs, d_add, dAinv):
-        """(Σ @ rhs, diag Σ) for Σ = K − K A⁻¹ K given chol L of
-        A = K + diag(d_add) and diag(A⁻¹)."""
+    def _sigma_apply(self, X, K, rhs, d_add, dAinv):
+        """(Σ @ rhs, diag Σ) for Σ = K − K A⁻¹ K given X = L⁻¹, L the chol
+        of A = K + diag(d_add), and diag(A⁻¹)."""
         Krhs = torch.einsum("...ij,...j->...i", K, rhs)
-        t1 = _cho_solve(L, Krhs)
+        t1 = _Solve.apply(K, d_add, X, Krhs)
+        SWEEP_COUNTS["inverse_solves"] += 1
         sig_rhs = Krhs - torch.einsum("...ij,...j->...i", K, t1)
         d_sig = self._diag_sigma(d_add, dAinv,
                                  torch.diagonal(K, dim1=-2, dim2=-1))
@@ -421,10 +476,14 @@ class Engine:
             μ          = K r − K A⁻¹ (K r)
             diag Σ     = d − d²·diag(A⁻¹),  d = diag(D⁻¹)
 
-        Returns the new ``(mu_f, dSf, mu_w, dSw_qp)`` and the factors the
-        ELBO terms reuse, ``(dv, inv_dv, Laf, dAinv_f, ratio, Law,
-        dAinv_w)``.  Shapes: Kf (q,N,N), Kw_flat (q·p,N,N) [index j·p+i],
-        y_c (p,N), variance (p,N), muF/varF (q,N), muW/varW (p,q,N)."""
+        A⁻¹ is applied through X = L⁻¹ of A's blocked factor
+        (``ops/blocked.py::blocked_chol_inverse``), of which only log diag L
+        is kept.  Returns the new ``(mu_f, dSf, mu_w, dSw_qp)`` and the
+        factors the ELBO terms reuse, ``(dv, inv_dv, logdiag_f, Xaf,
+        dAinv_f, ratio, logdiag_w, dAinv_w)``: log diag L and L⁻¹ of the
+        node factors, log diag L of the weights'.  Shapes: Kf (q,N,N),
+        Kw_flat (q·p,N,N) [index j·p+i], y_c (p,N), variance (p,N),
+        muF/varF (q,N), muW/varW (p,q,N)."""
         q, p, N = self.spec.q, self.spec.p, self.spec.N
         batch = muF.shape[:-2]
 
@@ -432,20 +491,22 @@ class Engine:
         dv, pred = self._node_stats(y_c, variance, muF, muW, varW)
         inv_dv = 1.0 / dv
         Af = Kf + torch.diag_embed(inv_dv)
-        Laf, dAinv_f = _on_stack(_blocked.blocked_chol_diag_ainv, Af)
-        mu_f, dSf = self._sigma_apply(Laf, Kf, pred, inv_dv, dAinv_f)
+        logdiag_f, Xaf, dAinv_f = _on_stack(_blocked.blocked_chol_inverse,
+                                            Af)
+        mu_f, dSf = self._sigma_apply(Xaf, Kf, pred, inv_dv, dAinv_f)
 
         # -- weight update (eqs. 18-19); uses NEW mu_f, OLD muW --
         ratio, pred2 = self._weight_stats(y_c, variance, muW, mu_f, dSf)
         Aw = Kw_flat + torch.diag_embed(ratio)
-        Law, dAinv_w = self._weight_map(
-            lambda A: _on_stack(_blocked.blocked_chol_diag_ainv, A), Aw)
-        mu_w_flat, dSw = self._sigma_apply(Law, Kw_flat, pred2, ratio,
+        logdiag_w, Xaw, dAinv_w = self._weight_map(
+            lambda A: _on_stack(_blocked.blocked_chol_inverse, A), Aw)
+        mu_w_flat, dSw = self._sigma_apply(Xaw, Kw_flat, pred2, ratio,
                                            dAinv_w)
         mu_w = mu_w_flat.reshape(*batch, q, p, N).transpose(-3, -2)  # (p,q,N)
         dSw_qp = dSw.reshape(*batch, q, p, N)
         return (mu_f, dSf, mu_w, dSw_qp,
-                (dv, inv_dv, Laf, dAinv_f, ratio, Law, dAinv_w))
+                (dv, inv_dv, logdiag_f, Xaf, dAinv_f, ratio, logdiag_w,
+                 dAinv_w))
 
     def _sweep_updates(self, Kf, Kw_flat, y_c, variance, muF, varF, muW,
                        varW):
@@ -455,32 +516,35 @@ class Engine:
             Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
         return mu_f, dSf, mu_w, dSw_qp.transpose(-3, -2)
 
-    def _sweep(self, Kf, Kw_flat, L_all, Linv_nodes, y_c, y_raw, variance,
-               muF, varF, muW, varW):
+    def _sweep(self, Kf, Kw_flat, Linv_all, y_c, y_raw, variance, muF, varF,
+               muW, varW):
         """One ELBOaux step: the updates, then the ELBO at the new state,
         Σ-free (Σ = K − K A⁻¹ K, A = K + D⁻¹, is never formed):
 
             log det Σ  = log det K − log det A − log det D
             tr(K⁻¹ Σ)  = tr(A⁻¹ D⁻¹) = Σⱼ dⱼ (A⁻¹)ⱼⱼ
 
-        Shapes as :meth:`_updates`, plus L_all (q·(1+p),N,N), Linv_nodes
-        (q,N,N) [None when q == 1], y_raw (p,N) (the data: no batch
-        dimensions)."""
+        Every inverse is applied as a product with a triangular inverse:
+        A⁻¹ through the updates' L_A⁻¹, μᵀK⁻¹μ as ‖L_K⁻¹ μ‖², the cross
+        traces' L_Ak⁻¹ D_k⁻¹ L_j⁻ᵀ as L_Ak⁻¹ times (L_j⁻¹ D_k⁻¹)ᵀ.  Shapes as
+        :meth:`_updates`, plus Linv_all (q·(1+p),N,N) the inverses of the
+        prior factors (nodes then weights), y_raw (p,N) (the data: no
+        batch dimensions)."""
         q, p, N = self.spec.q, self.spec.p, self.spec.N
         qp = q * p
         batch = muF.shape[:-2]
         mu_f, dSf, mu_w, dSw_qp, factors = self._updates(
             Kf, Kw_flat, y_c, variance, muF, varF, muW, varW)
-        dv, inv_dv, Laf, dAinv_f, ratio, Law, dAinv_w = factors
+        (dv, inv_dv, logdiag_f, Xaf, dAinv_f, ratio, logdiag_w,
+         dAinv_w) = factors
 
         # -- entropy: ½ Σ log det Σ by the determinant identity --
-        def half_logdet(L):
-            return torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
-                             dim=-1)
-
-        half_ldK = half_logdet(L_all)                            # (q·(1+p),)
-        ldA_f = 2.0 * half_logdet(Laf)                           # (q,)
-        ldA_w = 2.0 * half_logdet(Law)                           # (q·p,)
+        # ½ log det K = −Σ log diag(L_K⁻¹) (the inverse's diagonal is
+        # 1 / diag L_K)
+        half_ldK = -torch.sum(torch.log(torch.diagonal(
+            Linv_all, dim1=-2, dim2=-1)), dim=-1)                # (q·(1+p),)
+        ldA_f = 2.0 * torch.sum(logdiag_f, dim=-1)               # (q,)
+        ldA_w = 2.0 * torch.sum(logdiag_w, dim=-1)               # (q·p,)
         ldD_f = torch.sum(torch.log(dv), dim=-1)                 # (q,)
         ldD_w = -torch.sum(torch.log(ratio), dim=-1)             # (q·p,)
         ldSig = (2.0 * half_ldK
@@ -489,13 +553,14 @@ class Engine:
         ent = 0.5 * torch.sum(ldSig, dim=-1) \
             + 0.5 * q * (p + 1) * N * (1 + LOG_2PI)
 
-        # -- expected log prior: vector solves against L_all --
+        # -- expected log prior: μᵀK⁻¹μ = ‖L_K⁻¹ μ‖², one product --
         # reference quirk: the (p,q,N) weight means enter the prior as a
         # RAW flatten to (q·p, N)
         muW_prior = mu_w.reshape(*batch, qp, N)
         mu_all = torch.cat([mu_f, muW_prior], dim=-2)            # (q(1+p),N)
-        alpha_all = _cho_solve(L_all, mu_all)
-        muKmu_all = torch.einsum("...an,...an->...a", mu_all, alpha_all)
+        white = _tri_apply(Linv_all, mu_all)
+        SWEEP_COUNTS["inverse_solves"] += 1
+        muKmu_all = torch.einsum("...an,...an->...a", white, white)
         tr_f_same = torch.sum(inv_dv * dAinv_f, dim=-1)          # (q,)
         tr_w = torch.sum(ratio * dAinv_w, dim=-1)                # (q·p,)
         # reference quirk: node j's trace term uses the CUMULATIVE sum of
@@ -504,6 +569,7 @@ class Engine:
         #   tr(K_j⁻¹ Σ_k) = Σₙ diag(K_j⁻¹)ₙ/dvₖₙ − ‖L_Ak⁻¹ D_k⁻¹ L_j⁻ᵀ‖²
         tr_f_rows = [tr_f_same[..., j] for j in range(q)]
         if q > 1:
+            Linv_nodes = Linv_all[..., :q, :, :]
             diag_Kinv = torch.sum(Linv_nodes * Linv_nodes, dim=-2)  # (q,N)
             for j in range(1, q):
                 for k in range(j):
@@ -511,8 +577,8 @@ class Engine:
                                       dim=-1)
                     T = Linv_nodes[..., j, :, :] * \
                         inv_dv[..., k, None, :]                  # (N,N)
-                    W = torch.linalg.solve_triangular(
-                        Laf[..., k, :, :], T.transpose(-2, -1), upper=False)
+                    W = torch.matmul(Xaf[..., k, :, :], T.transpose(-2, -1))
+                    SWEEP_COUNTS["inverse_solves"] += 1
                     tr_f_rows[j] = tr_f_rows[j] + term1 - \
                         torch.sum(W * W, dim=(-2, -1))
         tr_f = torch.stack(tr_f_rows, dim=-1)
@@ -537,33 +603,33 @@ class Engine:
     # ---- fit --------------------------------------------------------------
 
     def _prepare(self, theta, t, y, yerr2):
-        """The per-θ constants of the sweeps: ``(Kf, Kw_flat, L_all,
-        Linv_nodes, y_c, y, variance)``, all but the data ``y`` with the
-        leading batch dimensions of ``theta``."""
-        q, N = self.spec.q, self.spec.N
+        """The per-θ constants of the sweeps: ``(Kf, Kw_flat, Linv_all,
+        y_c, y, variance)``, all but the data ``y`` with the leading batch
+        dimensions of ``theta``; ``Linv_all`` holds the inverses of the
+        prior lattice's Cholesky factors (the prior term, the log
+        determinants and, at q > 1, the nodes' cross traces)."""
+        q = self.spec.q
         K_all = self._lattice(theta, t)
         _, _, _, jitters = unpack_parameters(self.spec, theta)
-        # ONE batched Cholesky of the whole q·(1+p) prior lattice (the
-        # weights' split over the lattice axis, when there is one)
+
+        def prior_inverse(K):
+            # ONE batched Cholesky, then its inverse by strip inversion
+            return _on_stack(lambda K: (_blocked.tri_inverse(
+                _blocked.cholesky_nan(K)),), K)
+
+        # the whole q·(1+p) prior lattice (the weights' split over the
+        # lattice axis, when there is one)
         if self._lat_axis() is None:
-            L_all = _blocked.cholesky_nan(K_all)
+            (Linv_all,) = prior_inverse(K_all)
         else:
-            (Lw,) = self._weight_map(
-                lambda K: (_blocked.cholesky_nan(K),), K_all[..., q:, :, :])
-            L_all = torch.cat([_blocked.cholesky_nan(K_all[..., :q, :, :]),
-                               Lw], dim=-3)
-        Linv_nodes = None
-        if q > 1:
-            # L_f⁻¹ per node, for the cumulative-sumSigmaF cross traces
-            Lf = L_all[..., :q, :, :]
-            eye = torch.eye(N, dtype=L_all.dtype, device=L_all.device)
-            Linv_nodes = torch.linalg.solve_triangular(
-                Lf, eye.expand(Lf.shape), upper=False)
+            (Lw,) = self._weight_map(prior_inverse, K_all[..., q:, :, :])
+            Linv_all = torch.cat([prior_inverse(K_all[..., :q, :, :])[0],
+                                  Lw], dim=-3)
         m = self._mean_values(theta, t)
         y_c = y - m
         variance = jitters[..., :, None] ** 2 + yerr2
-        return (K_all[..., :q, :, :], K_all[..., q:, :, :], L_all,
-                Linv_nodes, y_c, y, variance)
+        return (K_all[..., :q, :, :], K_all[..., q:, :, :], Linv_all, y_c,
+                y, variance)
 
     def sweep_once(self, theta, t, y, yerr2, mu0, var0):
         """Single ELBOaux step: ``(elbo, mu, var)``."""
@@ -687,9 +753,8 @@ class Engine:
                 converged[rows[done]] = True
                 keep = put(~done)
                 rows = rows[~done]
-                # the data (prepared[5]) and a missing Linv_nodes have no
-                # row axis
-                prepared = [x if i == 5 or x is None else take(x, keep)
+                # the data (prepared[4]) has no row axis
+                prepared = [x if i == 4 else take(x, keep)
                             for i, x in enumerate(prepared)]
                 state = [take(s, keep) for s in state]
                 hist, elbo = take(hist, keep), take(elbo, keep)
@@ -810,8 +875,8 @@ class Engine:
         Returns ``(mu, var, n_iter, converged)``; ``n_iter`` counts whole
         chunks, so up to ``block − 1`` sweeps may run past ``max_iter``."""
         block = int(block)
-        _, _, L_all, Linv_nodes, y_c, y_raw, variance = self._prepare(
-            theta, t, y, yerr2)
+        _, _, Linv_all, y_c, y_raw, variance = self._prepare(theta, t, y,
+                                                             yerr2)
         Kf_p, Kw_p = self._plain_matrices(theta, t)
 
         def block_fn(muF, varF, muW, varW):
@@ -819,8 +884,8 @@ class Engine:
                 muF, varF, muW, varW = self._sweep_updates(
                     Kf_p, Kw_p, y_c, variance, muF, varF, muW, varW)
             e, mu_f, varf, mu_w, varw = self._sweep(
-                Kf_p, Kw_p, L_all, Linv_nodes, y_c, y_raw, variance,
-                muF, varF, muW, varW)
+                Kf_p, Kw_p, Linv_all, y_c, y_raw, variance, muF, varF, muW,
+                varW)
             return (e, mu_f, varf, mu_w, varw,
                     self._state_delta(mu_f, mu_w, muF, muW))
 
@@ -1100,7 +1165,7 @@ class Engine:
             raise ValueError("n_sweeps must be >= 1 (an unswept ELBO is "
                              "undefined)")
         prepared = self._prepare(theta, t, y, yerr2)
-        Kf, Kw_flat, _, _, y_c, _, variance = prepared
+        Kf, Kw_flat, _, y_c, _, variance = prepared
         batch = theta.shape[:-1]
         muF, muW = self._u_split(mu0.reshape(*batch, -1))
         varF, varW = self._u_split(var0.reshape(*batch, -1))

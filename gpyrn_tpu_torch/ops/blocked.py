@@ -17,6 +17,13 @@ strips with ``torch.cat``, so autograd differentiates through every
 strip (the gradient path, ``Engine.elbo_value_and_grad``, runs through
 here at every sweep).
 
+The dense sweep keeps L⁻¹ (:func:`blocked_chol_inverse`) and applies A⁻¹
+as two batched products, A⁻¹b = L⁻ᵀ(L⁻¹b), and the prior factors' inverses
+come from the same strip inversion (:func:`tri_inverse`): so no N×N
+triangular solve runs in a sweep, which torch would hand to MAGMA for a
+batch of more than 8 matrices wider than 512.  The lean engines keep only
+L and diag(A⁻¹) (:func:`blocked_chol_diag_ainv`).
+
 A failed factorization gives NaN, as ``jnp.linalg.cholesky`` does: the
 diagonal blocks are factored with ``cholesky_ex`` and the batch entries
 whose ``info`` is positive are overwritten with NaN on the device, with
@@ -27,7 +34,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["blocked_cholesky", "diag_Ainv", "blocked_chol_diag_ainv",
-           "cholesky_nan", "DEFAULT_BLOCK"]
+           "blocked_chol_inverse", "tri_inverse", "cholesky_nan",
+           "DEFAULT_BLOCK"]
 
 DEFAULT_BLOCK = 512
 
@@ -105,14 +113,11 @@ def blocked_cholesky(A, block: int = DEFAULT_BLOCK):
     return L, torch.stack(linvs, dim=1)
 
 
-def diag_Ainv(L, Linv_d=None, block: int = DEFAULT_BLOCK,
-              n_valid: int | None = None):
-    """``diag(A⁻¹)`` for ``A = L Lᵀ``: column norms² of ``L⁻¹``.
-
-    Row strip i of X = L⁻¹ is ``X_i = Linv_ii @ [−L_i,:a @ X_:a,:a │ I]``,
-    one matrix product per strip.  ``L`` must be padded to a block
-    multiple (identity tail, see :func:`blocked_cholesky`); ``n_valid``
-    slices the logical N back out."""
+def _strip_inverse(L, Linv_d, block: int):
+    """X = L⁻¹ of a batch of lower factors padded to a block multiple
+    (identity tail), row strip by row strip: ``X_i = Linv_ii @ [−L_i,:a @
+    X_:a,:a │ I]``, one matrix product per strip.  ``Linv_d`` holds the
+    (B, nb, T, T) inverses of L's diagonal blocks, or None to form them."""
     B, Npad, _ = L.shape
     T = _block_size(Npad, block)
     if Npad % T:
@@ -130,15 +135,49 @@ def diag_Ainv(L, Linv_d=None, block: int = DEFAULT_BLOCK,
         S = L[:, a:a + T, :a] @ X
         row = torch.cat([-(Linv @ S), Linv], dim=2)       # (B, T, a + T)
         X = torch.cat([torch.nn.functional.pad(X, (0, T)), row], dim=1)
+    return X
+
+
+def diag_Ainv(L, Linv_d=None, block: int = DEFAULT_BLOCK,
+              n_valid: int | None = None):
+    """``diag(A⁻¹)`` for ``A = L Lᵀ``: column norms² of ``L⁻¹``, formed
+    strip by strip (:func:`_strip_inverse`) and dropped.  ``L`` must be
+    padded to a block multiple (identity tail, see
+    :func:`blocked_cholesky`); ``n_valid`` slices the logical N back out."""
+    X = _strip_inverse(L, Linv_d, block)
     acc = torch.sum(X * X, dim=1)
-    n = Npad if n_valid is None else n_valid
+    n = L.shape[-1] if n_valid is None else n_valid
     return acc[:, :n]
 
 
 def blocked_chol_diag_ainv(A, block: int = DEFAULT_BLOCK):
     """``(L, diag(A⁻¹))`` of an SPD batch (B, N, N); L is (B, N, N), the
-    padding sliced off."""
+    padding sliced off.  The lean engines' call: L⁻¹ is not kept."""
     N = A.shape[-1]
     Lp, Linv_d = blocked_cholesky(A, block=block)
     d = diag_Ainv(Lp, Linv_d=Linv_d, block=block, n_valid=N)
     return Lp[:, :N, :N], d
+
+
+def blocked_chol_inverse(A, block: int = DEFAULT_BLOCK):
+    """``(log diag L, L⁻¹, diag(A⁻¹))`` of an SPD batch (B, N, N) with
+    A = L Lᵀ: the dense sweep's call, which applies A⁻¹ as
+    X = L⁻¹ twice, A⁻¹b = Xᵀ(X b), and needs of L only its log-determinant.
+    L⁻¹ is (B, N, N), the leading block of the padded inverse (a view
+    into it); L itself is not kept."""
+    N = A.shape[-1]
+    Lp, Linv_d = blocked_cholesky(A, block=block)
+    X = _strip_inverse(Lp, Linv_d, block)
+    logdiag = torch.log(torch.diagonal(Lp, dim1=-2, dim2=-1)[:, :N])
+    return logdiag, X[:, :N, :N], torch.sum(X * X, dim=1)[:, :N]
+
+
+def tri_inverse(L, block: int = DEFAULT_BLOCK):
+    """L⁻¹ of a batch (B, N, N) of lower factors, by the strip inversion
+    of :func:`_strip_inverse` on L padded with an identity tail: batched
+    products and T×T triangular inverses only (T ≤ ``block``), never an
+    N×N triangular solve.  (B, N, N), a view into the padded inverse."""
+    N = L.shape[-1]
+    Npad = _round_up(N, _block_size(N, block))
+    Lp = _pad_identity(L, Npad) if Npad != N else L
+    return _strip_inverse(Lp, None, block)[:, :N, :N]

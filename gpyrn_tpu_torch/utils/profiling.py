@@ -21,8 +21,12 @@ stage's end.  Beside them, the program's own record, always on:
 ``Engine.elbo_fit_batch`` records the spans ``gprn.fit_batch`` (the call)
 (with its counts) and, inside it, ``gprn.prepare``, ``gprn.sweep``, ``gprn.stop`` and
 ``gprn.gather``, and counts ``gprn.batch.sweeps`` and
-``gprn.batch.host_reads``; ``ops/cuda_kernels.py`` counts the CUDA
-kernels' launches as ``launches.<kernel>`` (``LAUNCHES``).
+``gprn.batch.host_reads``; the dense sweep counts
+``gprn.sweep.inverse_solves``, each application of a factor's inverse
+(3 a sweep at q = 1, one more for each pair of nodes; 2 an updates-only
+sweep);
+``ops/cuda_kernels.py`` counts the CUDA kernels' launches as
+``launches.<kernel>`` (``LAUNCHES``).
 """
 from __future__ import annotations
 

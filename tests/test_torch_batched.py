@@ -15,7 +15,10 @@ unperturbed), the last with a NaN length scale, go through:
   state per row;
 * ``init_mu_var`` over the rows against ``vmap(init_mu_var)``.
 
-The JAX side compiles three functions per model."""
+The JAX side compiles three functions per model.  Beside them, a batched
+fit at N = 600 (two strips of the blocked factorization) with the
+library's solvers spied on: the sweep applies every inverse as a product
+with a triangular inverse."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,3 +197,64 @@ def test_one_stack_call_builds_every_row(case, monkeypatch):
     assert calls == [(q * 3, {(ROWS,)})]
     assert prepared[0].shape == (ROWS, q, port.N, port.N)
     assert prepared[1].shape == (ROWS, 2 * q, port.N, port.N)
+
+
+@pytest.mark.parametrize("q", [1, 2], ids=["q1", "q2"])
+def test_sweep_solves_by_products_alone(q, monkeypatch):
+    """``elbo_fit_batch`` of two rows at N = 600, q = 1 and q = 2 (p = 2),
+    with ``torch.cholesky_solve`` and ``torch.linalg.solve_triangular``
+    spied on: ``_prepare`` and ``_sweep`` call no ``cholesky_solve``, and
+    ``solve_triangular`` only on the blocked factorization's diagonal
+    blocks (at most ``DEFAULT_BLOCK`` wide, narrower than N), never on a
+    whole N×N factor (torch sends a batch of more than 8 such to MAGMA
+    above 512); ``gprn.sweep.inverse_solves`` rises by 3 a sweep at
+    q = 1 (node, weight, prior) and by 4 at q = 2 (and the cross trace)."""
+    from gpyrn_tpu_torch import covfunc
+    from gpyrn_tpu_torch.models.gprn import (make_engine, pack_parameters,
+                                             spec_from_components)
+    from gpyrn_tpu_torch.ops.blocked import DEFAULT_BLOCK
+    from gpyrn_tpu_torch.utils import profiling
+    N = 600
+    rng = np.random.default_rng(60 + q)
+    t = np.sort(rng.uniform(0, 100, N))
+    y = np.stack([np.sin(2 * np.pi * t / P) + 0.1 * rng.standard_normal(N)
+                  for P in (20, 30)])
+    nodes = [covfunc.QuasiPeriodic(1.0, 30.0, 27.0, 0.7),
+             covfunc.Matern52(1.0, 5.0)][:q]
+    weights = [covfunc.SquaredExponential(1.0 + 0.1 * k, 30.0)
+               for k in range(2 * q)]
+    eng = make_engine(spec_from_components(nodes, weights, [None] * 2, N))
+    theta0 = pack_parameters(nodes, weights, [None] * 2, [0.1] * 2)
+    theta = torch.as_tensor(theta0[None] * np.exp(
+        0.05 * rng.standard_normal((2, theta0.size))))
+    data = (torch.as_tensor(t), torch.as_tensor(y),
+            torch.full((2, N), 0.01, dtype=torch.float64))
+    mu0, var0 = eng.init_mu_var(theta, data[1])
+
+    calls = {"cholesky_solve": [], "solve_triangular": []}
+    real_cs, real_st = torch.cholesky_solve, torch.linalg.solve_triangular
+
+    def cholesky_solve(B, L, *a, **kw):
+        calls["cholesky_solve"].append(tuple(L.shape))
+        return real_cs(B, L, *a, **kw)
+
+    def solve_triangular(A, B, *a, **kw):
+        calls["solve_triangular"].append(tuple(A.shape))
+        return real_st(A, B, *a, **kw)
+
+    monkeypatch.setattr(torch, "cholesky_solve", cholesky_solve)
+    monkeypatch.setattr(torch.linalg, "solve_triangular", solve_triangular)
+    before = profiling.counts()
+    elbo, *_ = eng.elbo_fit_batch(theta, *data, mu0, var0, 5)
+    after = profiling.counts()
+    monkeypatch.undo()
+
+    assert torch.isfinite(elbo).all()
+    assert calls["cholesky_solve"] == []
+    widths = {shape[-1] for shape in calls["solve_triangular"]}
+    assert widths and max(widths) <= DEFAULT_BLOCK < N
+    sweeps = after["gprn.batch.sweeps"] - before["gprn.batch.sweeps"]
+    assert sweeps == 5
+    assert (after["gprn.sweep.inverse_solves"]
+            - before["gprn.sweep.inverse_solves"]) == (3 if q == 1 else 4) \
+        * sweeps

@@ -345,9 +345,9 @@ def test_linalg_launches_the_kernel(cuda):
     assert ck.LAUNCHES["kernel_matrix"] == before + 2
 
 
-def _model(device):
+def _model(device, N=48):
+    """The flagship (``rv3-2node``'s structure and parameters), q = 2."""
     rng = np.random.default_rng(4)
-    N = 48
     t = np.sort(rng.uniform(0, 60, N))
     data = []
     for i in range(3):
@@ -559,6 +559,89 @@ def test_batched_fit_host_reads_are_its_syncs(make, cuda):
     reads, syncs = got[1]
     assert len(set(out[3].tolist())) >= 2      # rows stopped apart
     assert reads == syncs > 0
+
+
+# what the libraries may not do inside a batched sweep: MAGMA's kernels
+# (torch's batched cholesky_solve, and solve_triangular of more than 8
+# matrices wider than 512), and device allocations past the first sweep;
+# beside them the calls that can wait for the device, counted
+MAGMA_MARKS = ("magma", "dtrsv_")
+SWEEP_CALLS = ("cudaMalloc", "cudaFree", "cudaStreamSynchronize",
+               "cudaDeviceSynchronize", "cudaEventSynchronize",
+               "cudaMemcpyAsync")
+
+
+def sweep_library_calls(g, rows=26, max_iter=12, seed=5, takes=4):
+    """One batch of ``rows`` rows (``_rows``' spread) of ``g``'s model,
+    ``elbo_fit_batch`` from the heuristic start to ``max_iter`` sweeps,
+    traced by ``torch.profiler`` after the same batch ran untraced (so the
+    caching allocator holds the batch's blocks).  Returns the number of
+    traced ``gprn.sweep`` spans, the MAGMA kernels of the trace (names with
+    one of ``MAGMA_MARKS``), and for each of ``SWEEP_CALLS`` the calls
+    inside the first sweep and inside the later ones.  A trace without
+    device records is taken again, up to ``takes`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    eng, data = g.engine, g._data()
+    thetas = g._tensor(_rows(g, rows=rows, seed=seed))
+    mu0, var0 = eng.init_mu_var(thetas, data[1])
+    eng.elbo_fit_batch(thetas, *data, mu0, var0, max_iter)
+    torch.cuda.synchronize()
+    for _ in range(takes):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.elbo_fit_batch(thetas, *data, mu0, var0, max_iter)
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        kernels = [e.name() for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert kernels, "the profiler recorded no device event"
+    # the host's spans (the profiler mirrors each on the device's timeline)
+    sweeps = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in events if e.name() == "gprn.sweep"
+                    and e.device_type() == torch.autograd.DeviceType.CPU)
+    out = {"sweeps": len(sweeps), "kernels": len(kernels),
+           "magma_kernels": sum(any(m in k for m in MAGMA_MARKS)
+                                for k in kernels)}
+    for name in SWEEP_CALLS:
+        inside = [sum(s <= e.start_ns() < t for e in events
+                      if e.name() == name) for s, t in sweeps]
+        out[name] = (inside[0], sum(inside[1:])) if inside else (0, 0)
+    # what each copy after the first sweep was (the device's record of the
+    # call) and the innermost operator that made it
+    cpu = torch.autograd.DeviceType.CPU
+    device = {e.correlation_id(): e.name() for e in events
+              if e.device_type() != cpu}
+    ops = [e for e in events if e.device_type() == cpu
+           and not e.name().startswith(("cuda", "gprn."))]
+    kinds = {}
+    for e in events:
+        if e.name() != "cudaMemcpyAsync" or not any(
+                s <= e.start_ns() < t for s, t in sweeps[1:]):
+            continue
+        around = [o for o in ops if o.start_ns() <= e.start_ns()
+                  <= o.start_ns() + o.duration_ns()]
+        op = min(around, key=lambda o: o.duration_ns()).name() \
+            if around else "?"
+        key = f"{device.get(e.correlation_id(), '?')} in {op}"
+        kinds[key] = kinds.get(key, 0) + 1
+    out["copies"] = kinds
+    return out
+
+
+@pytest.mark.cuda
+def test_search_batch_calls_no_library_solver(cuda):
+    """One batch of ``rv3-2node.search26``'s shape (the flagship, q = 2,
+    26 rows, N = 1000, float64) under ``torch.profiler``: no MAGMA kernel,
+    and no ``cudaMalloc`` / ``cudaFree`` inside a ``gprn.sweep`` after the
+    first.  Prints the counts (``-s``), the syncs inside the sweeps
+    among them."""
+    got = sweep_library_calls(_model(cuda, N=1000))
+    print(f"\nsearch26-shaped batch: {got}")
+    assert got["sweeps"] > 1 and got["kernels"] > 0
+    assert got["magma_kernels"] == 0
+    assert got["cudaMalloc"][1] == got["cudaFree"][1] == 0
 
 
 @pytest.mark.cuda

@@ -192,12 +192,12 @@ def test_batch_fit_counts_its_host_reads(q, max_iter):
     # the stop test's read each sweep from sweep 4; each sweep at which
     # rows stop gathers: two copies to the device and five mask indexings
     # in finish(), the keep mask's copy, and the mask indexings of the
-    # prepared constants that have rows (5, or 6 with q > 1: Linv_nodes),
-    # the four states, hist and elbo; rows left running at max_iter are
-    # written out by a last finish(); the returned n_iter and converged
-    # are two copies to the device
+    # prepared constants that have rows (5: Kf, Kw_flat, Linv_all, y_c,
+    # variance), the four states, hist and elbo; rows left running at
+    # max_iter are written out by a last finish(); the returned n_iter and
+    # converged are two copies to the device
     events = len(set(n_iter[converged].tolist()))
-    gather = 2 + 5 + 1 + (5 + (q > 1)) + 4 + 2
+    gather = 2 + 5 + 1 + 5 + 4 + 2
     last = 7 if not converged.all() else 0
     reads = max(sweeps - 3, 0) + gather * events + last + 2
     assert profiling.counts()["gprn.batch.sweeps"] == sweeps
@@ -210,8 +210,12 @@ def test_batch_fit_counts_its_host_reads(q, max_iter):
     got = _new(first)
     call = [s for s in got if s.name == "gprn.fit_batch"]
     assert len(call) == 1 and call[0].parent == 0
+    # every sweep applies an inverse for the node and the weight updates,
+    # the prior term and each node pair's cross trace
     assert call[0].counts == {"gprn.batch.sweeps": sweeps,
-                              "gprn.batch.host_reads": reads}
+                              "gprn.batch.host_reads": reads,
+                              "gprn.sweep.inverse_solves":
+                              sweeps * (3 + q * (q - 1) // 2)}
     inner = [s for s in got if s.name != "gprn.fit_batch"]
     assert all(s.parent == call[0].id and s.call == call[0].id
                for s in inner)
