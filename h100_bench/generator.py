@@ -29,7 +29,10 @@ The data and the rows follow chip_smoke.py (``headline_problem``,
 chip_smoke.py:370-385; ``flagship_problem``, :388-404; ``batch_thetas``,
 :691-699): sorted times uniform on [0, t_span), output i a sine of period
 ``periods[i]`` plus Gaussian noise, and each row the configuration's
-parameters times exp(spread N(0, 1)), entry by entry.  The stretch move is
+parameters times exp(spread N(0, 1)), entry by entry.  The data may add
+to an output a mean at stated parameters (``data.signals``: a planet in the
+radial velocities), computed by the reference's component file.  The
+stretch move is
 ``ensemble.py::_host_draws`` and ``_half_step`` (:257-290).
 """
 from __future__ import annotations
@@ -37,6 +40,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
+
+from h100_bench.reference import components
 
 
 class Pool(NamedTuple):
@@ -46,20 +52,42 @@ class Pool(NamedTuple):
     walkers: Optional[np.ndarray]   # (2 rows, n_parameters), ensemble mixes
 
 
+def _kernel_pars(entry):
+    """A kernel entry's parameters; a composite's are its parts', left
+    first, as the package's ``Sum.pars`` is ``r_[k1.pars, k2.pars]``."""
+    if "of" in entry:
+        return [x for e in entry["of"] for x in _kernel_pars(e)]
+    return list(entry["pars"])
+
+
 def theta0(config) -> np.ndarray:
     """The configuration's parameters in the order nodes, weights, means,
     jitters."""
-    parts = [c["pars"] for c in config["nodes"] + config["weights"]]
+    parts = [_kernel_pars(c) for c in config["nodes"] + config["weights"]]
     parts += [m["pars"] for m in config["means"] if m is not None]
     parts.append(config["jitters"])
     return np.concatenate([np.asarray(p, dtype=float) for p in parts])
 
 
+def signal(entry, t):
+    """The mean ``entry`` at its stated parameters at the times t, by the
+    reference's component file, in float64 on the CPU."""
+    value = components.Mean(entry).value(
+        torch.tensor([entry["pars"]], dtype=torch.float64),
+        torch.as_tensor(t, dtype=torch.float64))
+    return value[0].numpy()
+
+
 def data(config, N, rng):
+    """(t, y, yerr): output i a sine of period ``periods[i]`` with noise,
+    plus the mean ``signals[i]`` where the data name one (a planet)."""
     d = config["data"]
     t = np.sort(rng.uniform(0.0, d["t_span"], N))
     y = np.stack([np.sin(2 * np.pi * t / P) + d["noise"]
                   * rng.standard_normal(N) for P in d["periods"]])
+    for i, entry in enumerate(d.get("signals", [])):
+        if entry is not None:
+            y[i] += signal(entry, t)
     return t, y, np.full_like(y, d["yerr"])
 
 

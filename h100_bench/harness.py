@@ -5,6 +5,9 @@ Everything that belongs to one configuration, traffic mix, cell or metric
 is a file of its own, found by the name ``BENCHMARK.json`` gives:
 
 * ``configs/<config>.json``: the model's structure, parameters and data;
+* ``reference/kernels/<Name>.py``, ``reference/means/<Name>.py``: the
+  plain reference's component of each package class a configuration
+  names;
 * ``traffic/<traffic>.json``: the mix's parameters, read by the one
   generator (``generator.py``), and the entry it drives
   (``entries/<entry>.py``);
@@ -151,9 +154,10 @@ def _rel(a, b):
 
 def compare(model, chosen, pool, device, max_iter):
     """The checks' numbers over the ``chosen`` fits [(theta row, walker or
-    None, Fits of one row on the host)]: the plain reference fits each row
-    again in float64 on ``device``, from its walker's state where it has
-    one (the reference fits the walkers itself first)."""
+    None, Fits of one row on the host)]: the plain reference ``model``
+    fits each row again in float64 on ``device``, from its walker's state
+    where it has one (the reference fits the walkers itself first), in
+    chunks of rows that fit in the device's free memory."""
     import torch
 
     def put(a):
@@ -268,6 +272,8 @@ def run_cell(bench, name, seed, seconds, traced, device="cuda", dtype=None,
     config = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
     dtype = dtype or config["dtype"]
+    # the reference's components, before set-up: a missing file fails here
+    model = ref.Model(config)
     pool = generator.pool(config, traffic, seed)
     batches = generator.Batches(config, traffic, pool, seed)
     program = bench.entry(traffic["entry"])(config, traffic, pool, device,
@@ -318,7 +324,7 @@ def run_cell(bench, name, seed, seconds, traced, device="cuda", dtype=None,
         f"set-up {setup_s:.4f} s; peak {memory_peak} bytes")
 
     r0 = time.perf_counter()
-    numbers = compare(ref.Model(config), chosen, pool, device,
+    numbers = compare(model, chosen, pool, device,
                       int(traffic["max_iter"]))
     log(f"reference: {len(chosen)} fits in {time.perf_counter() - r0:.3f} s")
     checks = {k: {"value": numbers[k], "limit": v}

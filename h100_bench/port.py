@@ -13,11 +13,15 @@ DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 def components(config):
     """(nodes, weights, means, jitters) of the configuration, as the
-    package's kernel and mean objects."""
+    package's kernel and mean objects; a kernel entry with ``of`` is the
+    package's composite (``Sum``, ``Multiplication``) of its entries."""
     from gpyrn_tpu_torch import covfunc, meanfunc
 
     def kernel(c):
-        return getattr(covfunc, c["kernel"])(*c["pars"])
+        cls = getattr(covfunc, c["kernel"])
+        if "of" in c:
+            return cls(*[kernel(e) for e in c["of"]])
+        return cls(*c["pars"])
 
     means = [None if m is None else getattr(meanfunc, m["mean"])(*m["pars"])
              for m in config["means"]]

@@ -2,15 +2,24 @@
 
 Written from the model's equations (Nguyen & Bonilla 2013, eqs. 16-19, and
 the reference gpyrn's ELBO conventions), independently of the package under
-test: it imports nothing of it, forms every posterior covariance as an
-explicit N x N matrix,
+test: it imports nothing of it, and takes its kernels and means from the
+component files of :mod:`components`.  Each GP's posterior
 
-    Sigma = (K^-1 + D^-1)^-1 = D - D (K + D)^-1 D,    mu = Sigma r,
+    Sigma = (K^-1 + D^-1)^-1 = D - D A^-1 D,   A = K + D,   mu = Sigma r,
 
-and takes log det Sigma from a Cholesky of Sigma itself.  The conventions
-of the reference gpyrn that the ELBO keeps:
+comes from the Cholesky factor of A: mu = d r - d A^-1 (d r), and
+diag Sigma = d - d^2 diag(A^-1) from the columns of A's inverse factor.
+log det Sigma comes from the determinant lemma,
 
-* training covariance K + max(1e-6, 4 eps N k(0)) I (eps of the dtype);
+    log det Sigma = log det K + sum log d - log det A,
+
+from the factors of K and A that the prior and the update form anyway:
+a Cholesky of Sigma would form Sigma as one more N x N matrix and factor
+it, N^3 / 3 more a GP and sweep.  The conventions of the reference gpyrn
+that the ELBO keeps:
+
+* training covariance K + max(1e-6, 4 eps tr K) I (eps of the dtype),
+  unless the kernel's component file says the package adds none;
 * the heuristic start uses the first p weight amplitudes and reads the
   (q, p, N)-ordered weight means as (p, q, N) with a raw reshape;
 * node j's prior trace term is tr(K_j^-1 sum_{k<=j} Sigma_k);
@@ -22,9 +31,16 @@ of the reference gpyrn that the ELBO keeps:
 * a fit stops when the relative std of its last three ELBO values is
   below 1e-3 (and not 0), tested from sweep 4 on.
 
-Every function takes a leading row axis W (one row per hyperparameter
-vector).  The GPs are visited one at a time, so a fit at N = 20,000 holds a
-few N x N matrices per GP and no more.
+**Memory.**  Every function takes a leading row axis W (one row per
+hyperparameter vector).  A row holds the N x N matrices of one GP at a
+time: its covariance, built in blocks of rows and turned into A in place,
+and A's factor; A's inverse factor is taken in blocks of columns.  Only
+for q > 1 are the first q - 1 nodes' Sigma kept, for the cross traces
+(which are taken in blocks of columns too).  The prior's factor of K is
+formed again, one GP at a time, where the ELBO needs it.  Rows are fitted
+in chunks whose working set fits in ``MEMORY_SHARE`` of the free memory
+(all rows at once at N = 1000).  So one row holds q + 1 N x N matrices at
+its peak: two at N = 50,000, q = 1, and three at q = 2.
 """
 from __future__ import annotations
 
@@ -32,70 +48,64 @@ import math
 
 import torch
 
+from h100_bench.reference import components
+
 LOG_2PI = math.log(2 * math.pi)
 TRAIN_NUGGET = 1e-6
 JITTER_MULT = 4.0
+# the largest block of rows or columns (W x N x b) formed at once; a
+# kernel's formula holds a few such blocks alive while it is evaluated
+BLOCK_BYTES = 1 << 29
+# of the device's free memory, what a chunk of rows may take; the rest is
+# room for the blocks and the libraries' workspace
+MEMORY_SHARE = 0.75
 
 
-def _se(p, r):
-    return p[:, 0, None, None] ** 2 * torch.exp(
-        -0.5 * r ** 2 / p[:, 1, None, None] ** 2)
+def free_bytes(device):
+    """The memory free for the reference on ``device``: the card's free
+    memory and what torch's allocator holds unused; None off a card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
 
 
-def _periodic(p, r):
-    theta, P, ell = (p[:, i, None, None] for i in range(3))
-    return theta ** 2 * torch.exp(
-        -2 * torch.sin(math.pi * torch.abs(r) / P) ** 2 / ell ** 2)
-
-
-def _quasi_periodic(p, r):
-    theta, le, P, lp = (p[:, i, None, None] for i in range(4))
-    return theta ** 2 * torch.exp(
-        -2 * torch.sin(math.pi * torch.abs(r) / P) ** 2 / lp ** 2
-        - r ** 2 / (2 * le ** 2))
-
-
-def _matern52(p, r):
-    theta, ell = p[:, 0, None, None], p[:, 1, None, None]
-    a = math.sqrt(5.0) * torch.abs(r) / ell
-    return theta ** 2 * (1 + a + a ** 2 / 3) * torch.exp(-a)
-
-
-# name -> (number of parameters, k(params (W, n), lags (N, N)) -> (W, N, N))
-KERNELS = {"SquaredExponential": (2, _se), "Periodic": (3, _periodic),
-           "QuasiPeriodic": (4, _quasi_periodic), "Matern52": (2, _matern52)}
-
-
-def _linear(p, t):
-    return p[:, 0, None] * (t - torch.mean(t)) + p[:, 1, None]
-
-
-# name -> (number of parameters, m(params (W, n), t (N,)) -> (W, N))
-MEANS = {"Linear": (2, _linear)}
+def _blocks(W, N, dtype):
+    """Slices [s, e) of at most ``BLOCK_BYTES`` / (W N itemsize) of N."""
+    itemsize = torch.finfo(dtype).bits // 8
+    b = max(1, BLOCK_BYTES // (W * N * itemsize))
+    return [(s, min(s + b, N)) for s in range(0, N, b)]
 
 
 class Model:
     """The structure of a configuration: q nodes, q p weights (node-major),
     p means (None for zero) and p jitters, in the parameter order
-    nodes, weights, means, jitters."""
+    nodes, weights, means, jitters; the components from their files."""
 
     def __init__(self, config):
         self.q, self.p = int(config["q"]), int(config["p"])
-        self.nodes = [c["kernel"] for c in config["nodes"]]
-        self.weights = [c["kernel"] for c in config["weights"]]
-        self.means = [None if c is None else c["mean"]
+        self.kernels = [components.Kernel(c)
+                        for c in config["nodes"] + config["weights"]]
+        self.means = [None if c is None else components.Mean(c)
                       for c in config["means"]]
-        if len(self.nodes) != self.q or len(self.weights) != self.q * self.p \
+        if len(config["nodes"]) != self.q \
+                or len(config["weights"]) != self.q * self.p \
                 or len(self.means) != self.p:
             raise ValueError("a configuration has q nodes, q p weights and "
                              "p means")
-        sizes = [KERNELS[k][0] for k in self.nodes + self.weights]
-        sizes += [0 if m is None else MEANS[m][0] for m in self.means]
+        sizes = [k.n_parameters for k in self.kernels]
+        sizes += [0 if m is None else m.n_parameters for m in self.means]
         self.sizes = sizes + [self.p]
 
     @property
     def n_parameters(self):
         return sum(self.sizes)
+
+    @property
+    def n_gps(self):
+        return self.q * (1 + self.p)
 
     def split(self, theta):
         """(kernel parameter blocks, mean parameter blocks, jitters) of
@@ -104,26 +114,28 @@ class Model:
         for n in self.sizes:
             out.append(theta[:, pos:pos + n])
             pos += n
-        n_k = self.q * (1 + self.p)
+        n_k = self.n_gps
         return out[:n_k], out[n_k:n_k + self.p], out[-1]
 
     def covariance(self, g, pars, t):
-        """(W, N, N) training covariance of GP g (nodes first)."""
-        name = (self.nodes + self.weights)[g]
-        r = t[:, None] - t[None, :]
-        K = KERNELS[name][1](pars, r)
-        k0 = KERNELS[name][1](pars, torch.zeros((1, 1), dtype=t.dtype,
-                                                device=t.device))[:, 0, 0]
-        nugget = torch.clamp(JITTER_MULT * torch.finfo(t.dtype).eps
-                             * t.shape[0] * k0, min=TRAIN_NUGGET)
-        return K + nugget[:, None, None] * torch.eye(
-            t.shape[0], dtype=t.dtype, device=t.device)
+        """(W, N, N) training covariance of GP g (nodes first), built in
+        blocks of rows."""
+        kernel, W, N = self.kernels[g], pars.shape[0], t.shape[0]
+        K = torch.empty(W, N, N, dtype=t.dtype, device=t.device)
+        for s, e in _blocks(W, N, t.dtype):
+            K[:, s:e] = kernel.value(pars, t[s:e], t)
+        if kernel.nugget:
+            diag = torch.diagonal(K, dim1=-2, dim2=-1)
+            nugget = torch.clamp(JITTER_MULT * torch.finfo(t.dtype).eps
+                                 * diag.sum(-1), min=TRAIN_NUGGET)
+            diag.add_(nugget[:, None])
+        return K
 
     def mean_values(self, mean_pars, t):
         W = mean_pars[0].shape[0]
         return torch.stack([
             torch.zeros(W, t.shape[0], dtype=t.dtype, device=t.device)
-            if m is None else MEANS[m][1](mp, t)
+            if m is None else m.value(mp, t)
             for m, mp in zip(self.means, mean_pars)], dim=1)
 
 
@@ -155,24 +167,14 @@ def _split_state(model, u, N):
     return u[:, :q * N].reshape(W, q, N), u[:, q * N:].reshape(W, p, q, N)
 
 
-def _posterior(K, d, r):
-    """mu, diag Sigma, log det Sigma and Sigma for Sigma = D - D (K + D)^-1 D,
-    D = diag(d), mu = Sigma r (all batched over rows)."""
-    A = K + torch.diag_embed(d)
-    Ainv = torch.cholesky_inverse(torch.linalg.cholesky(A))
-    del A
-    S = torch.diag_embed(d) - d[:, :, None] * Ainv * d[:, None, :]
-    del Ainv
-    mu = (S @ r[:, :, None])[:, :, 0]
-    logdet = 2 * torch.log(torch.diagonal(torch.linalg.cholesky(S),
-                                          dim1=-2, dim2=-1)).sum(-1)
-    return mu, torch.diagonal(S, dim1=-2, dim2=-1).clone(), logdet, S
-
-
 def _trace_solve(L, S):
-    """tr(K^-1 S) for K = L L^T."""
-    return torch.diagonal(torch.cholesky_solve(S, L), dim1=-2,
-                          dim2=-1).sum(-1)
+    """tr(K^-1 S) for K = L L^T, in blocks of S's columns."""
+    W, N = S.shape[0], S.shape[-1]
+    tr = torch.zeros(W, dtype=S.dtype, device=S.device)
+    for s, e in _blocks(W, N, S.dtype):
+        Y = torch.cholesky_solve(S[:, :, s:e], L)
+        tr = tr + torch.diagonal(Y[:, s:e], dim1=-2, dim2=-1).sum(-1)
+    return tr
 
 
 class Fit:
@@ -181,18 +183,48 @@ class Fit:
 
     def __init__(self, model, theta, t, y, yerr2):
         self.model, self.t, self.y = model, t, y
-        q, p = model.q, model.p
-        kpars, mpars, jit = model.split(theta)
-        self.K = [model.covariance(g, kpars[g], t) for g in range(q + q * p)]
-        self.L = [torch.linalg.cholesky(K) for K in self.K]
+        self.kpars, mpars, jit = model.split(theta)
         self.y_c = y[None] - model.mean_values(mpars, t)        # (W, p, N)
         self.variance = jit[:, :, None] ** 2 + yerr2[None]      # (W, p, N)
+
+    def prior_factor(self, g):
+        """The Cholesky factor of GP g's training covariance (W, N, N)."""
+        return torch.linalg.cholesky(self.model.covariance(g, self.kpars[g],
+                                                           self.t))
+
+    def posterior(self, g, d, r, with_sigma=False):
+        """GP g's update for D = diag(d) and the information vector r:
+        mu, diag Sigma, sum log d - log det A (the part of log det Sigma
+        beside log det K) and, ``with_sigma``, Sigma itself."""
+        A = self.model.covariance(g, self.kpars[g], self.t)
+        torch.diagonal(A, dim1=-2, dim2=-1).add_(d)
+        L = torch.linalg.cholesky(A)
+        del A
+        part = torch.log(d).sum(-1) - 2 * torch.log(
+            torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+        dr = d * r
+        mu = dr - d * torch.cholesky_solve(dr[:, :, None], L)[:, :, 0]
+        W, N = d.shape
+        inv_diag = torch.empty_like(d)                          # diag A^-1
+        S = torch.empty_like(L) if with_sigma else None
+        for s, e in _blocks(W, N, d.dtype):
+            E = torch.zeros(W, N, e - s, dtype=d.dtype, device=d.device)
+            torch.diagonal(E[:, s:e], dim1=-2, dim2=-1).fill_(1.0)
+            X = torch.linalg.solve_triangular(L, E, upper=False)
+            del E
+            inv_diag[:, s:e] = (X ** 2).sum(-2)
+            if S is not None:
+                Ainv = torch.linalg.solve_triangular(L.mT, X, upper=True)
+                S[:, :, s:e] = -d[:, :, None] * Ainv * d[:, None, s:e]
+        if S is not None:
+            torch.diagonal(S, dim1=-2, dim2=-1).add_(d)
+        return mu, d - d ** 2 * inv_diag, part, S
 
     def sweep(self, muF, varF, muW, varW):
         """One coordinate-ascent sweep: the ELBO at the new state and the
         state (mu_f, var_f (W, q, N), mu_w, var_w (W, p, q, N))."""
         m, y_c, var = self.model, self.y_c, self.variance
-        q, p, N = m.q, m.p, self.t.shape[0]
+        q, p = m.q, m.p
         # node updates (eqs. 16-17): precision dv and information vector
         vw = var[:, :, None, :]                                 # (W,p,1,N)
         dv = ((muW ** 2 + varW) / vw).sum(1)                    # (W, q, N)
@@ -203,12 +235,13 @@ class Fit:
                 resid = y_c[:, i] - fit_all[:, i] + muW[:, i, j] * muF[:, j]
                 pred[:, j] += resid * muW[:, i, j] / var[:, i]
         mu_f, var_f = torch.zeros_like(muF), torch.zeros_like(muF)
-        logdet, node_S = [], []
+        parts, node_S = [], []
         for j in range(q):
-            mu, dS, ld, S = _posterior(self.K[j], 1.0 / dv[:, j], pred[:, j])
+            mu, dS, part, S = self.posterior(j, 1.0 / dv[:, j], pred[:, j],
+                                             with_sigma=j < q - 1)
             mu_f[:, j], var_f[:, j] = mu, dS
-            logdet.append(ld)
-            node_S.append(S if q > 1 else None)
+            parts.append(part)
+            node_S.append(S)
         # weight updates (eqs. 18-19), with the new nodes and the old weights
         dv2 = mu_f ** 2 + var_f
         fit_all = torch.einsum("wpqn,wqn->wpn", muW, mu_f)
@@ -217,27 +250,29 @@ class Fit:
             for i in range(p):
                 resid = y_c[:, i] - fit_all[:, i] + muW[:, i, j] * mu_f[:, j]
                 ratio = var[:, i] / dv2[:, j]
-                mu, dS, ld, _ = _posterior(self.K[q + j * p + i], ratio,
-                                           resid * mu_f[:, j] / var[:, i])
+                mu, dS, part, _ = self.posterior(
+                    q + j * p + i, ratio, resid * mu_f[:, j] / var[:, i])
                 mu_w[:, i, j], var_w[:, i, j] = mu, dS
-                logdet.append(ld)
-        elbo = self._elbo(mu_f, var_f, mu_w, var_w, dv, logdet, node_S)
+                parts.append(part)
+        elbo = self._elbo(mu_f, var_f, mu_w, var_w, dv, parts, node_S)
         return elbo, mu_f, var_f, mu_w, var_w
 
-    def _elbo(self, mu_f, var_f, mu_w, var_w, dv, logdet, node_S):
+    def _elbo(self, mu_f, var_f, mu_w, var_w, dv, parts, node_S):
         m, var = self.model, self.variance
         q, p, N = m.q, m.p, self.t.shape[0]
         W = mu_f.shape[0]
-        G = q * (1 + p)
-        ent = 0.5 * sum(logdet) + 0.5 * G * N * (1 + LOG_2PI)
+        G = m.n_gps
+        # entropy: 1/2 sum_g log det Sigma_g, log det K_g added below
+        ent = 0.5 * sum(parts) + 0.5 * G * N * (1 + LOG_2PI)
         # prior: the weight means read raw as (q p, N)
         mus = [mu_f[:, j] for j in range(q)] + list(
             mu_w.reshape(W, q * p, N).unbind(1))
         logp = -0.5 * N * G * LOG_2PI
         for g in range(G):
-            L = self.L[g]
+            L = self.prior_factor(g)
             half_logdet_K = torch.log(torch.diagonal(L, dim1=-2,
                                                      dim2=-1)).sum(-1)
+            ent = ent + half_logdet_K
             mKm = (mus[g] * torch.cholesky_solve(mus[g][:, :, None],
                                                  L)[:, :, 0]).sum(-1)
             if g < q:
@@ -252,6 +287,7 @@ class Fit:
                 ratio = var[:, i] / (mu_f[:, j] ** 2 + var_f[:, j])
                 tr = N - (var_w[:, i, j] / ratio).sum(-1)
             logp = logp - half_logdet_K - 0.5 * (mKm + tr)
+            del L
         # likelihood, on the raw data
         y = self.y[None]
         res = y - torch.einsum("wpqn,wqn->wpn", mu_w, mu_f)
@@ -273,13 +309,18 @@ def _stops(hist):
     return (crit < 1e-3) & (crit != 0)
 
 
-def elbo_fit(model, theta, t, y, yerr2, max_iter, start=None):
-    """Each row's fit under the reference rule, to at most ``max_iter``
-    sweeps, from ``start`` = (mu0, var0) (W, d) where given, else from the
-    heuristic start: ``(elbo (W,), mu (W, d), var (W, d), n_iter (W,),
-    converged (W,))``, each row as it stood at the sweep where it stopped,
-    ``converged`` where the rule stopped it.  Rows that stopped sweep on
-    with the others and are not read again."""
+def chunking(model, W, N, dtype, free):
+    """The rows a chunk holds, of W rows with ``free`` bytes free (None:
+    all rows).  A row's working set is q + 1 N x N matrices: A and its
+    factor, or K and its factor, beside the q - 1 kept node Sigma."""
+    if free is None:
+        return W
+    matrix = N * N * torch.finfo(dtype).bits // 8
+    return max(1, min(W, int(MEMORY_SHARE * free
+                             // ((model.q + 1) * matrix))))
+
+
+def _fit_rows(model, theta, t, y, yerr2, max_iter, start):
     N = t.shape[0]
     fit = Fit(model, theta, t, y, yerr2)
     mu0, var0 = initial_state(model, theta, y) if start is None else start
@@ -308,6 +349,24 @@ def elbo_fit(model, theta, t, y, yerr2, max_iter, start=None):
         if bool(done.all()):
             break
     return out_elbo, out_mu, out_var, n_iter, converged
+
+
+def elbo_fit(model, theta, t, y, yerr2, max_iter, start=None):
+    """Each row's fit under the reference rule, to at most ``max_iter``
+    sweeps, from ``start`` = (mu0, var0) (W, d) where given, else from the
+    heuristic start: ``(elbo (W,), mu (W, d), var (W, d), n_iter (W,),
+    converged (W,))``, each row as it stood at the sweep where it stopped,
+    ``converged`` where the rule stopped it.  Rows that stopped sweep on
+    with the others of their chunk and are not read again."""
+    W = theta.shape[0]
+    rows = chunking(model, W, t.shape[0], t.dtype, free_bytes(t.device))
+    outs = []
+    for s in range(0, W, rows):
+        part = None if start is None else (start[0][s:s + rows],
+                                           start[1][s:s + rows])
+        outs.append(_fit_rows(model, theta[s:s + rows], t, y, yerr2,
+                              max_iter, part))
+    return tuple(torch.cat(o) for o in zip(*outs))
 
 
 def walker_states(model, walkers, t, y, yerr2, max_iter):

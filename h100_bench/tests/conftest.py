@@ -36,6 +36,55 @@ def small_bench(tmp_path, edit=None):
     return harness.Bench(root, tmp_path / "BENCHMARK.json")
 
 
+# a GPRN of gpyrn's own purpose: a Keplerian mean on the radial velocities
+# (output 0), whose data hold that planet, and a node kernel that is a sum
+KEPLERIAN = {
+    "name": "rv3-kep",
+    "source": "Camacho, Faria & Viana, MNRAS 519:5439: a GPRN with a "
+              "Keplerian mean on the RV",
+    "reduced": [], "q": 1, "p": 3, "dtype": "float64",
+    "nodes": [{"kernel": "Sum", "of": [
+        {"kernel": "QuasiPeriodic", "pars": [1.0, 30.0, 20.0, 0.7]},
+        {"kernel": "SquaredExponential", "pars": [0.3, 5.0]}]}],
+    "weights": [{"kernel": "SquaredExponential", "pars": [1.0, 30.0]},
+                {"kernel": "SquaredExponential", "pars": [1.05, 30.0]},
+                {"kernel": "SquaredExponential", "pars": [1.1, 30.0]}],
+    "means": [{"mean": "Keplerian", "pars": [11.3, 0.8, 0.15, 1.0, 3.0]},
+              None, None],
+    "jitters": [0.1, 0.1, 0.1],
+    "data": {"t_span": 100.0, "periods": [20.0, 25.0, 30.0], "noise": 0.1,
+             "yerr": 0.1,
+             "signals": [{"mean": "Keplerian",
+                          "pars": [11.3, 0.8, 0.15, 1.0, 3.0]}, None, None]},
+}
+
+
+def add_keplerian(root, spec):
+    """The Keplerian configuration, a cold mix and an ensemble mix, and
+    their two cells, as new files and entries only."""
+    (root / "configs" / "rv3-kep.json").write_text(json.dumps(KEPLERIAN))
+    (root / "traffic" / "cold3.json").write_text(json.dumps(
+        {"entry": "batch_fit", "N": 40, "rows": 3, "spread": 0.05,
+         "max_iter": 40, "pool_seed": 9}))
+    (root / "traffic" / "warm3.json").write_text(json.dumps(
+        {"entry": "batch_fit", "N": 40, "rows": 3, "stretch": 2.0,
+         "spread": 0.05, "max_iter": 100, "pool_seed": 10}))
+    spec["configs"].append({"name": "rv3-kep", "source": KEPLERIAN["source"],
+                            "file": "h100_bench/configs/rv3-kep.json",
+                            "reduced": [], "why": "a test's configuration"})
+    for mix in ("cold3", "warm3"):
+        name = f"rv3-kep.{mix}"
+        (root / "workloads" / f"{name}.json").write_text(json.dumps(
+            {"config": "rv3-kep", "traffic": mix,
+             "check": {"sample": 3, "limits": {"elbo_rel": 1e-9,
+                                               "state_rel": 1e-9,
+                                               "n_iter_diff": 0}}}))
+        spec["workloads"].append({"name": name, "config": "rv3-kep",
+                                  "traffic": mix, "chips": 1,
+                                  "why": "a test's cell"})
+        spec["end_to_end"][0]["workloads"].append(name)
+
+
 def fake_profile(fn, host=True):
     """What ``trace.profile`` gives on a card, made up: the call, and a
     slice of 10 ms with a B1 launch, a Cholesky and an idle gap."""

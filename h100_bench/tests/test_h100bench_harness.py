@@ -218,9 +218,14 @@ def test_forbidden_modules_compare_whole_names(monkeypatch):
 
 
 def test_yardstick_imports_nothing_of_the_package():
+    """The yardstick's modules, and every component file of the
+    reference, loaded in a fresh process."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import h100_bench.reference.gprn, h100_bench.counts, "
             "h100_bench.generator, h100_bench.trace, h100_bench.readings; "
+            "from h100_bench.reference import components as c; "
+            "[c.load(p.parent.name, p.stem) "
+            "for p in sorted(c.HERE.glob('*/*.py'))]; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'gpyrn_tpu', 'gpyrn_tpu_torch', 'jax', 'jaxlib'}))")
     out = subprocess.run([sys.executable, "-c", code, str(harness.REPO)],

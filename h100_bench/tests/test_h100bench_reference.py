@@ -10,15 +10,18 @@ import torch
 from h100_bench import counts, generator, harness, port, readings, trace
 from h100_bench.entries import batch_fit
 from h100_bench.reference import gprn as ref
+from h100_bench.tests.conftest import KEPLERIAN
 
 
 @pytest.mark.parametrize("start", ["heuristic", "walker"])
-@pytest.mark.parametrize("name", ["rv3-qp", "rv3-2node"])
+@pytest.mark.parametrize("name", ["rv3-qp", "rv3-2node", KEPLERIAN["name"]])
 def test_reference_agrees_with_the_package(name, start):
     """The fits of four rows, from the heuristic start, or from the states
-    of the walkers they were proposed from (the sampler's warm start)."""
-    config = json.loads((harness.ROOT / "configs" / f"{name}.json")
-                        .read_text())
+    of the walkers they were proposed from (the sampler's warm start); the
+    two configurations of the benchmark, and the test's Keplerian one
+    (a Keplerian mean, a planet in its data, a sum of kernels)."""
+    config = KEPLERIAN if name == KEPLERIAN["name"] else json.loads(
+        (harness.ROOT / "configs" / f"{name}.json").read_text())
     mix = {"N": 48, "rows": 4, "spread": 0.1, "stretch": 2.0,
            "max_iter": 100, "pool_seed": 3}
     pool = generator.pool(config, mix, None)
